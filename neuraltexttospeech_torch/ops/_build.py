@@ -1,8 +1,8 @@
-"""Builds the CUDA sources in ``ops/csrc`` at first use and loads them.
+"""Builds a CUDA source of ``ops/csrc`` at first use and loads it.
 
-Each ``csrc/*.cu`` has a plain C interface and compiles with ``nvcc`` for
-``sm_90a`` into its own shared library under ``neuraltexttospeech_torch/_build/``,
-named by a hash of the sources and flags, so an edit rebuilds and an
+A ``csrc/*.cu`` has a plain C interface and compiles with ``nvcc`` for
+``sm_90a`` into a shared library under ``neuraltexttospeech_torch/_build/``,
+named by a hash of the source and flags, so an edit rebuilds and an
 unchanged tree reuses the library. The library is loaded with ``ctypes``;
 the wrappers pass ``tensor.data_ptr()`` and PyTorch's current stream. Sources
 include no PyTorch header, which keeps a build to seconds.
@@ -18,19 +18,17 @@ import os
 import pathlib
 import subprocess
 import threading
-from typing import Dict, Iterable
+from typing import Dict
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build", "load", "build_logs"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "load"]
 
 CSRC_DIR = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-# nvcc's stderr per source (ptxas register / shared-memory / spill report).
-build_logs: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -41,44 +39,21 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def _library_path(source: str) -> pathlib.Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(CSRC_DIR.glob("*.cuh")) + [CSRC_DIR / source]:
-        digest.update(f.read_bytes())
-    return BUILD_DIR / f"{pathlib.Path(source).stem}-{digest.hexdigest()[:16]}.so"
-
-
-def build(sources: Iterable[str]) -> Dict[str, pathlib.Path]:
-    """Compile each source not yet built, one ``nvcc`` per source, all
-    started together. Returns ``{source: library path}``."""
-    paths = {s: _library_path(s) for s in sources}
-    todo = {s: p for s, p in paths.items() if not p.exists()}
-    if not todo:
-        return paths
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    for s, p in todo.items():
-        tmp = p.with_name(f"{p.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / s)]
-        procs[s] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.PIPE, text=True))
-    failed = []
-    for s, (tmp, proc) in procs.items():
-        _, err = proc.communicate()
-        build_logs[s] = err
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed for {s} (exit {proc.returncode}):\n{err}")
-        else:
-            os.replace(tmp, todo[s])
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return paths
-
-
 def load(source: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<source>``, built first if needed."""
     with _lock:
         if source not in _libs:
-            _libs[source] = ctypes.CDLL(str(build([source])[source]))
+            src = CSRC_DIR / source
+            digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + src.read_bytes())
+            lib = BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
+            if not lib.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+                out = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                     capture_output=True, text=True)
+                if out.returncode != 0:
+                    raise RuntimeError(f"nvcc failed for {source} "
+                                       f"(exit {out.returncode}):\n{out.stderr}")
+                os.replace(tmp, lib)
+            _libs[source] = ctypes.CDLL(str(lib))
         return _libs[source]

@@ -36,7 +36,8 @@ __all__ = ["fused_mel_spectrogram", "fused_frames_to_mel",
 
 SOURCE = "mel_kernel.cu"
 _BIN_TILE = 64   # the kernel walks bins in chunks of 64 (kTileB)
-_MEL_TILE = 16   # and splits mels over 16 thread groups, at most 8 each
+_MEL_TILE = 16   # and splits mels over 16 thread groups
+_MEL_WIDTHS = (16, 80)  # padded mel counts the kernel is instantiated for
 _TAP_TILE = 16   # and taps in stages of 16 (kTileK)
 
 
@@ -141,8 +142,9 @@ def fused_frames_to_mel(frames: torch.Tensor,
                          f"filter_length {fft_length}, a multiple of {_TAP_TILE}")
     if not frames.is_contiguous() or frames.data_ptr() % 16:
         raise ValueError("frames must be contiguous and 16-byte aligned")
-    if config.n_mel_channels > 8 * _MEL_TILE:
-        raise ValueError(f"at most {8 * _MEL_TILE} mel channels")
+    if _round_up(config.n_mel_channels, _MEL_TILE) not in _MEL_WIDTHS:
+        raise ValueError(f"the kernel takes 65..80 mel channels, or up to 16; "
+                         f"got {config.n_mel_channels}")
     n = frames.shape[0]
     out = torch.empty((n, config.n_mel_channels), dtype=torch.float32,
                       device=frames.device)

@@ -60,12 +60,18 @@ def test_chip_smoke_fails_without_gpu():
 
 
 def test_chip_smoke_fails_outside_the_repo(tmp_path):
-    script = tmp_path / "chip_smoke.py"
-    script.write_text((ROOT / "chip_smoke.py").read_text())
-    out = subprocess.run([sys.executable, str(script)], cwd=tmp_path,
-                         env=_clean_env(CUDA_VISIBLE_DEVICES=""),
+    """Alone in a directory, the script gets past the device check (stubbed
+    to say a card is there) and fails at the import of the package."""
+    (tmp_path / "chip_smoke.py").write_text((ROOT / "chip_smoke.py").read_text())
+    code = ("import runpy, torch\n"
+            "torch.cuda.is_available = lambda: True\n"
+            "runpy.run_path('chip_smoke.py', run_name='__main__')\n")
+    env = _clean_env()
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
+    assert "No module named 'neuraltexttospeech_torch'" in out.stderr, out.stderr[-2000:]
     assert '"ok": true' not in out.stdout
 
 

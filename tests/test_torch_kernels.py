@@ -105,4 +105,6 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
         mel_kernel.fused_frames_to_mel(frames[:, :512], cfg)
     with pytest.raises(ValueError):
         mel_kernel.fused_frames_to_mel(torch.zeros(1024, 8, device=cuda_device).t(), cfg)
+    with pytest.raises(ValueError):  # no instantiation for 40 mels
+        mel_kernel.fused_frames_to_mel(frames, STFTConfig(n_mel_channels=40))
     assert mel_kernel.fused_frames_to_mel(frames[:0], cfg).shape == (0, 80)
