@@ -6,17 +6,25 @@
 Phases, each raising on failure:
 
 1. Device: the card's name and power limit.
-2. Kernels: build every kernel of the serving path from ``ops/csrc``, hold
-   each against its plain PyTorch twin on the card (TF32 off) and time the
-   kernel, the twin and the PyTorch library call for the same function.
-3. Main path, through the two serving CLIs with full-width FastPitch and
+2. Kernels: build both kernels from ``ops/csrc`` (one ``nvcc`` each, at
+   once), hold each against its plain PyTorch twin on the card (TF32 off)
+   and time the kernel, the twin and the PyTorch library call for the same
+   function: B1 (log-mel) forward and its analytic backward; B2 (the MSD's
+   tap-window grouped GEMM) at every distinct MSD shape of a v1 GAN step,
+   forward and dx.
+3. Serving path, through the two serving CLIs with full-width FastPitch and
    HiFi-GAN v1 (random weights from a seed): text → wav for 16 sentences,
-   then wav → wav copy-synthesis, whose log-mels go through the kernel. The
-   kernel launch counts are zeroed just before and read just after.
-4. Reference check at a small width: the card's text → wav and
-   copy-synthesis agree with the same weights run on the CPU.
-5. Timing: text → wav at the ``bench.py`` shape (batch 8 × 128 tokens,
-   1024 mel frames), f32 and bf16 autocast, in wall seconds per audio second.
+   then wav → wav copy-synthesis, whose log-mels go through B1.
+4. Training path, through the trainer CLI at v1 (batch 16 × 8192 samples,
+   f32): 3 steps, then ``--resume`` for one more; finite losses, and B1 and
+   B2 launched as often per step as the code says. For each path the launch
+   counts are zeroed just before and read just after.
+5. Reference checks: at a small width the card's text → wav and
+   copy-synthesis agree with the same weights on the CPU, and so does one
+   GAN step of the small (``TINY``) generator with the full MPD and MSD.
+6. Timing: text → wav at the ``bench.py`` shape (batch 8 × 128 tokens,
+   1024 mel frames), f32 and bf16 autocast, in wall seconds per audio
+   second; the v1 GAN step in ms and samples/s with a profiler split.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -144,24 +152,34 @@ def logmel_bound_ms(n, cfg):
             dft_bound_ms)
 
 
-def phase_kernels(torch, device, card):
-    """Build, hold against the plain twin, time. Returns the JSON record."""
-    from neuraltexttospeech_torch.audio.stft import STFTConfig, num_frames, windowed_frames
-    from neuraltexttospeech_torch.ops import _build, mel_kernel
+def build_kernels():
+    """Build every kernel's library at once, one ``nvcc`` per source."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from neuraltexttospeech_torch.ops import _build, gouter_kernel, mel_kernel
 
     t0 = time.perf_counter()
-    _build.load(mel_kernel.SOURCE)
-    log(f"kernels built: mel_kernel.fused_frames_to_mel "
-        f"({time.perf_counter() - t0:.1f} s)")
+    sources = (mel_kernel.SOURCE, gouter_kernel.SOURCE)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(_build.load, sources))
+    log(f"kernels built: {', '.join(sources)} ({time.perf_counter() - t0:.1f} s)")
+
+
+def phase_kernels(torch, device, card):
+    """B1: hold against the plain twin, time. Returns the JSON record."""
+    from neuraltexttospeech_torch.audio.stft import STFTConfig, num_frames, windowed_frames
+    from neuraltexttospeech_torch.ops import mel_kernel
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     tol = dict(atol=1e-3, rtol=1e-4)  # tests/test_audio.py's log-mel budget
     pad = (1024 - HOP) // 2
-    wavs = torch.as_tensor(synthetic_wavs(8, 10.0, seed=0), device=device)
-    # the main path's call: one reflect-padded 10 s wav (copy-synthesis)
+    wavs = torch.as_tensor(synthetic_wavs(16, 10.0, seed=0), device=device)
+    # the serving path's call: one reflect-padded 10 s wav (copy-synthesis);
+    # the training path's: 16 reflect-padded 8192-sample crops (512 frames)
     one = torch.nn.functional.pad(wavs[:1, None], (pad, pad), mode="reflect")[0, 0]
-    shapes = {"one_wav": one, "batch_8x10s": wavs}
+    crops = torch.nn.functional.pad(wavs[:, None, :8192], (pad, pad), mode="reflect")[:, 0]
+    shapes = {"one_wav": one, "train_16x8192": crops, "batch_8x10s": wavs[:8]}
     record = None
     for label, x in shapes.items():
         frames = windowed_frames(x, 1024, HOP, 1024).reshape(-1, 1024).contiguous()
@@ -190,7 +208,7 @@ def phase_kernels(torch, device, card):
         lib_out = library().reshape(-1, 80)
         torch.testing.assert_close(lib_out, mel_kernel.frames_to_mel_reference(frames, cfg),
                                    **tol)
-        iters = 50 if n < 2000 else 20
+        iters = 20 if n < 2000 else 10
         ms = cuda_ms(lambda: mel_kernel.fused_frames_to_mel(frames, cfg), iters)
         plain_ms = cuda_ms(lambda: mel_kernel.frames_to_mel_reference(frames, cfg), iters)
         library_ms = cuda_ms(library, iters)
@@ -207,7 +225,140 @@ def phase_kernels(torch, device, card):
                       "launches": None, "max_abs_err": err, "ms": ms,
                       "plain_ms": plain_ms, "bound_ms": bound_ms,
                       "bound_by": bound_by, "library_ms": library_ms}
+        if label == "train_16x8192":
+            check_mel_backward(torch, frames, cfg, card)
     return record
+
+
+def check_mel_backward(torch, frames, cfg, card):
+    """B1's analytic backward (the mel loss's gradient) against autograd
+    through the plain twin; both timed, forward included."""
+    from neuraltexttospeech_torch.ops import mel_kernel
+
+    g = torch.randn(frames.shape[0], cfg.n_mel_channels, device=frames.device)
+    grads = {}
+    for name, fn in (("kernel", mel_kernel.fused_frames_to_mel),
+                     ("plain", mel_kernel.frames_to_mel_reference)):
+        f = frames.clone().requires_grad_()
+        out = fn(f, cfg)
+        if out.grad_fn is None:
+            raise RuntimeError(f"the {name} log-mel carries no gradient")
+        out.backward(g)
+        grads[name] = f.grad
+    scale = grads["plain"].abs().max().item()
+    d = (grads["kernel"] - grads["plain"]).abs().max().item()
+    log(f"B1 backward N={frames.shape[0]}: max|analytic - autograd through plain| = "
+        f"{d:.3e} ({d / scale:.2e} of max|grad|)")
+    if d > 1e-4 * scale:  # tests/test_audio.py's VJP budget
+        raise RuntimeError("B1's backward disagrees with autograd through its twin")
+    ms = {}
+    for name, fn in (("kernel", mel_kernel.fused_frames_to_mel),
+                     ("plain", mel_kernel.frames_to_mel_reference)):
+        f = frames.clone().requires_grad_()
+        ms[name] = cuda_ms(lambda: fn(f, cfg).backward(g), 10)
+    bwd_ms = cuda_ms(lambda: mel_kernel.frames_to_mel_backward(frames, g, cfg), 10)
+    log(f"B1 forward+backward N={frames.shape[0]}: kernel + analytic {ms['kernel'] * 1e3:.1f} us "
+        f"(backward alone {bwd_ms * 1e3:.1f} us), plain + autograd {ms['plain'] * 1e3:.1f} us "
+        f"[{card}]")
+
+
+def msd_tap_shapes(batch, length):
+    """Every B2 call of one MSD pass over ``batch`` wavs of ``length``
+    samples, as ``(scale, layer, forward (g, B, Qp, X, Y, kf, s, q), dx
+    shape)``, from the model's own layer plan and fold plan."""
+    from neuraltexttospeech_torch.models.hifigan import DiscriminatorS
+    from neuraltexttospeech_torch.nn.fastconv import plan_folded
+
+    d = DiscriminatorS(group_impl="gouter")
+    shapes = []
+    for scale in range(3):
+        cin = 1
+        for layer, ((ch, k, st, g), use, n) in enumerate(d.layer_plan(length)):
+            if use:
+                pi, po = use
+                _, m_min, m_max, s = plan_folded(k, st, 1, pi, po)
+                kf = (m_max - m_min) // s + 1
+                q = n // pi
+                qp = q + m_max - m_min
+                x_dim, y_dim = pi * cin // g, po * ch // g
+                fwd = (g, batch, qp, x_dim, y_dim, kf, s, q)
+                dx = (g, batch, qp + (kf - 1) * s, y_dim, x_dim, kf, s, qp)
+                shapes.append((scale, layer, fwd, dx))
+            cin = ch
+        length = -(-length // 2)  # the SAME 4-tap, stride-2 average pool
+    return shapes
+
+
+def tap_dots_bound_ms(shape):
+    """Least time an H100 could take for one tap-window call (NVIDIA's SXM
+    peaks: 67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s): the larger
+    of 2*g*B*kf*q*X*Y FLOP and the bytes of xp, wf and y, each once."""
+    g, b, qp, x_dim, y_dim, kf, s, q = shape
+    flop = 2 * g * b * kf * q * x_dim * y_dim
+    nbytes = 4 * (g * b * qp * x_dim + kf * g * x_dim * y_dim + g * b * q * y_dim)
+    t_ops, t_bytes = flop / 67e12, nbytes / 3.35e12
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_tap_dots(torch, device, card):
+    """B2 at every distinct MSD shape of a v1 GAN step (batch 16 × 8192),
+    forward and dx: held against the twin (rtol 1e-5, atol 1e-5·max|y|),
+    timed beside the twin, grouped F.conv1d and the bound. Returns the JSON
+    record (sums over the distinct shapes)."""
+    from neuraltexttospeech_torch.ops import gouter_kernel
+
+    F = torch.nn.functional
+    gen = torch.Generator(device=device).manual_seed(0)
+    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, t_ops=0.0, t_bytes=0.0)
+    worst = 0.0
+    for scale, layer, fwd, dx in msd_tap_shapes(16, 8192):
+        for kind, shape in (("fwd", fwd), ("dx", dx)):
+            g, b, qp, x_dim, y_dim, kf, s, q = shape
+            xp = torch.randn(g, b, qp, x_dim, device=device, generator=gen)
+            wf = torch.randn(kf, g, x_dim, y_dim, device=device,
+                             generator=gen) / (kf * x_dim) ** 0.5
+            got = gouter_kernel.gouter_tap_dots_kernel(xp, wf, s, q)
+            want = gouter_kernel.gouter_tap_dots_reference(xp, wf, s, q)
+            torch.cuda.synchronize()
+            d = (got - want).abs().max().item()
+            scale_y = want.abs().max().item()
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale_y)
+            worst = max(worst, d)
+            # the library call: grouped, dilated conv1d over [B, g*X, Qp]
+            x_lib = xp.permute(1, 0, 3, 2).reshape(b, g * x_dim, qp).contiguous()
+            w_lib = wf.permute(1, 3, 2, 0).reshape(g * y_dim, x_dim, kf).contiguous()
+            lib = F.conv1d(x_lib, w_lib, dilation=s, groups=g)
+            torch.testing.assert_close(lib.reshape(b, g, y_dim, q).permute(1, 0, 3, 2), want,
+                                       rtol=1e-4, atol=1e-4 * scale_y)
+            ms = cuda_ms(lambda: gouter_kernel.gouter_tap_dots_kernel(xp, wf, s, q), 5)
+            plain_ms = cuda_ms(lambda: gouter_kernel.gouter_tap_dots_reference(xp, wf, s, q), 5)
+            library_ms = cuda_ms(lambda: F.conv1d(x_lib, w_lib, dilation=s, groups=g), 5)
+            bound_ms, bound_by = tap_dots_bound_ms(shape)
+            flop = 2 * g * b * kf * q * x_dim * y_dim
+            log(f"B2 scale {scale} layer {layer} {kind} (g={g}, B={b}, Qp={qp}, X={x_dim}, "
+                f"Y={y_dim}, kf={kf}, s={s}, q={q}): max|kernel - plain| {d:.3e} "
+                f"({d / scale_y:.1e} of max|y|); kernel {ms * 1e3:.1f} us "
+                f"({flop / ms / 1e9:.1f} TFLOP/s), plain {plain_ms * 1e3:.1f} us, "
+                f"grouped conv1d {library_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.1f} us "
+                f"({bound_by}), {bound_ms / ms:.1%} of it reached")
+            for key, value in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
+                               ("bound_ms", bound_ms)):
+                totals[key] += value
+            totals["t_ops"] += flop / 67e12
+            totals["t_bytes"] += 4 * (g * b * qp * x_dim + kf * g * x_dim * y_dim
+                                      + g * b * q * y_dim) / 3.35e12
+            del xp, wf, got, want, x_lib, w_lib, lib
+    log(f"B2 all distinct shapes of one MSD pass (15 forward + 15 dx): kernel "
+        f"{totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, grouped conv1d "
+        f"{totals['library_ms']:.3f} ms, bound {totals['bound_ms']:.3f} ms "
+        f"({totals['bound_ms'] / totals['ms']:.1%} reached) [{card}]")
+    return {"name": "gouter_kernel.gouter_tap_dots_kernel", "route": "cuda",
+            "source": "neuraltexttospeech_torch/ops/csrc/gouter_kernel.cu",
+            "replaces": "neuraltexttospeech_tpu/ops/gouter_kernel.py:114",
+            "launches": None, "max_abs_err": worst, "ms": totals["ms"],
+            "plain_ms": totals["plain_ms"], "bound_ms": totals["bound_ms"],
+            "bound_by": "operations" if totals["t_ops"] >= totals["t_bytes"] else "bytes",
+            "library_ms": totals["library_ms"]}
 
 
 def save_models(torch, device, fp_cfg, hg_cfg, seed, tag):
@@ -234,7 +385,7 @@ def check_text2wav_outputs(out_dir, n_utts):
         assert sr == SR and audio.shape == (mel.shape[0] * HOP,), (audio.shape, mel.shape)
 
 
-def phase_main_path(torch, device):
+def phase_serving(torch, device):
     """Both serving entry points at full width. Returns B1's launch count."""
     from neuraltexttospeech_torch.audio.stft import num_frames
     from neuraltexttospeech_torch.cli import fastpitch_infer, hifigan_infer
@@ -282,6 +433,103 @@ def phase_main_path(torch, device):
         raise RuntimeError(f"copy-synthesis launched the log-mel kernel {launches} "
                            f"times for {len(wavs)} wavs")
     return launches
+
+
+def b2_launches_per_step(segment_size):
+    """Kernel B2's launches in one GAN step, from the model's layer plan:
+    per gouter layer of the MSD, the discriminator lane runs a forward and a
+    dx for the real and for the fake batch, and the generator lane a forward
+    and a dx for the fake one."""
+    return 6 * len(msd_tap_shapes(1, segment_size))
+
+
+def phase_training(torch, device, card):
+    """The trainer CLI at v1 (batch 16 × 8192, f32, TF32 off) on synthetic
+    wavs: 3 steps, then --resume for a 4th. Returns the launch counts and
+    the trainer."""
+    from neuraltexttospeech_torch.cli import hifigan_train
+    from neuraltexttospeech_torch.data.filelist import save_wav
+    from neuraltexttospeech_torch.ops import gouter_kernel, mel_kernel
+
+    names = []
+    for i, w in enumerate(synthetic_wavs(16, 1.0, seed=5)):
+        path = WORK / "train_wavs" / f"synth_{i}.wav"
+        save_wav(str(path), w, SR)
+        names.append(str(path))
+    filelist = WORK / "train.txt"
+    filelist.write_text("\n".join(f"{p}|" for p in names) + "\n")
+    args = ["--config", "v1", "-o", str(WORK / "train"), "--training-files", str(filelist),
+            "--steps-per-epoch", "1"]
+
+    mel_kernel.fused_frames_to_mel.launches = 0
+    gouter_kernel.gouter_tap_dots_kernel.launches = 0
+    t0 = time.perf_counter()
+    first = hifigan_train.main(args + ["--epochs", "3"])
+    resumed = hifigan_train.main(args + ["--epochs", "4", "--resume"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    b1 = mel_kernel.fused_frames_to_mel.launches
+    b2 = gouter_kernel.gouter_tap_dots_kernel.launches
+
+    steps = first["steps"] + resumed["steps"]
+    trainer = resumed["trainer"]
+    if (first["steps"], resumed["steps"], trainer.step) != (3, 1, 4):
+        raise RuntimeError(f"trainer ran {first['steps']} + {resumed['steps']} steps, "
+                           f"ended at step {trainer.step}")
+    for run in (first, resumed):
+        bad = {k: v for k, v in run["metrics"].items() if not np.isfinite(v)}
+        if bad or not run["metrics"]:
+            raise RuntimeError(f"non-finite or missing losses: {run['metrics']}")
+    want_b2 = b2_launches_per_step(trainer.config.segment_size)
+    log(f"training path: v1 GAN step, batch 16 x 8192, {steps} steps (3, then --resume 1) "
+        f"in {wall:.1f} s with set-up and checkpoints; B1 launches {b1} ({b1 / steps:g} per "
+        f"step), B2 launches {b2} ({b2 / steps:g} per step, {want_b2} by the layer plan); "
+        f"last losses " + " ".join(f"{k}={v:.4f}" for k, v in sorted(resumed["metrics"].items()))
+        + f" [{card}]")
+    if b1 != 3 * steps or b2 != want_b2 * steps:
+        raise RuntimeError(f"the GAN step launched B1 {b1} and B2 {b2} times in {steps} steps; "
+                           f"expected {3 * steps} and {want_b2 * steps}")
+    from neuraltexttospeech_torch.cli import hifigan_infer
+
+    gen, cfg = hifigan_infer.load_generator(WORK / "train" / "checkpoints" / "4", device)
+    mel = torch.randn(1, 32, cfg.num_mels, device=device)
+    with torch.no_grad():
+        torch.testing.assert_close(gen(mel), trainer.gen(mel), rtol=1e-4, atol=1e-5)
+    return {"b1": b1, "b2": b2, "trainer": trainer}
+
+
+def phase_gan_reference(torch, device):
+    """One GAN step of TINY's generator with the full MPD and MSD (gouter
+    path, B2 on the card): card vs CPU from the same weights and batch, at
+    tests/test_hifigan.py:211-217's tolerances."""
+    from neuraltexttospeech_torch.models.hifigan import HiFiGANConfig
+    from neuraltexttospeech_torch.models.hifigan_gan import HiFiGANTrainer
+
+    cfg = HiFiGANConfig(resblock="2", upsample_rates=(4, 4), upsample_kernel_sizes=(8, 8),
+                        upsample_initial_channel=32, resblock_kernel_sizes=(3,),
+                        resblock_dilation_sizes=((1, 2),), n_fft=64, hop_size=16,
+                        win_size=64, segment_size=256, num_mels=8,
+                        fast_grouped_convs="gdot_pallas")
+    audio = (np.random.default_rng(8).standard_normal((4, 256, 1)) * 0.1).astype(np.float32)
+    cpu = torch.device("cpu")
+    out = {}
+    for dev in (device, cpu):
+        trainer = HiFiGANTrainer(cfg, dev)
+        metrics = trainer.train_step({"audio": torch.as_tensor(audio, device=dev)})
+        state = {f"{name}.{k}": v.detach().cpu()
+                 for name in ("gen", "mpd", "msd")
+                 for k, v in getattr(trainer, name).state_dict().items()}
+        out[dev.type] = ({k: float(v) for k, v in metrics.items()}, state)
+    worst_m = max(abs(out["cuda"][0][k] - out["cpu"][0][k]) for k in out["cpu"][0])
+    for k, v in out["cpu"][0].items():
+        np.testing.assert_allclose(out["cuda"][0][k], v, rtol=2e-4, atol=2e-5, err_msg=k)
+    worst_p = 0.0
+    for k, v in out["cpu"][1].items():
+        tol = dict(rtol=1e-4, atol=1e-6) if ".sn." in k else dict(rtol=3e-3, atol=3e-5)
+        np.testing.assert_allclose(out["cuda"][1][k].numpy(), v.numpy(), err_msg=k, **tol)
+        worst_p = max(worst_p, (out["cuda"][1][k] - v).abs().max().item())
+    log(f"reference: TINY GAN step (full MPD + MSD through B2) card vs CPU: max|metric diff| "
+        f"{worst_m:.2e}, max|param/stat diff| {worst_p:.2e}")
 
 
 def phase_reference(torch, device):
@@ -334,15 +582,23 @@ def phase_reference(torch, device):
 
 def device_breakdown(torch, fn, top=6):
     """One traced call of ``fn``: total kernel time on the card (ms) and the
-    kernels that took most of it, as ``[(ms, name)]``."""
+    kernels that took most of it, as ``[(ms, name)]``; every kernel's time
+    and the number of device events stay on ``device_breakdown.last`` and
+    ``.launches``, the host's CUDA runtime calls on ``.runtime``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [(e.self_device_time_total / 1e3, e.key) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]  # ranges, not kernels
+    kernels = [(e.self_device_time_total / 1e3, e.key) for e in events]
+    device_breakdown.last = kernels
+    device_breakdown.launches = sum(e.count for e in events)
+    device_breakdown.runtime = {  # host side: CUDA runtime calls, (count, ms)
+        e.key: (e.count, e.self_cpu_time_total / 1e3) for e in prof.key_averages()
+        if e.device_type != DeviceType.CUDA and e.key.startswith(("cuda", "cu"))}
     return sum(ms for ms, _ in kernels), sorted(kernels, reverse=True)[:top]
 
 
@@ -421,6 +677,47 @@ def phase_timing(torch, device, card):
         + "; ".join(f"{ms:.2f} ms {name[:70]}" for ms, name in top))
 
 
+def phase_train_timing(torch, trainer, card):
+    """The v1 GAN step (batch 16 × 8192) on the CLI's trainer: wall ms and
+    samples/s (median of 3 synchronised steps), the generator's share
+    (CUDA events over its forward and backward), and a profiler split."""
+    rng = np.random.default_rng(6)
+    cfg = trainer.config
+    batch = {"audio": torch.as_tensor((rng.standard_normal((16, cfg.segment_size, 1)) * 0.1)
+                                      .astype(np.float32), device=trainer.device)}
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, hosts = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        hosts.append(time.perf_counter() - t0)  # the host has issued the step
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = float(np.median(walls))
+    samples = 16 * cfg.segment_size
+    mel = torch.randn(16, cfg.segment_size // cfg.hop_size, cfg.num_mels, device=trainer.device)
+    dy = torch.randn(16, cfg.segment_size, 1, device=trainer.device)
+    gen_ms = cuda_ms(lambda: torch.autograd.backward(trainer.gen(mel), dy), 3)
+    trainer.gen.zero_grad(set_to_none=True)
+    log(f"GAN step v1 f32 (TF32 off): batch 16 x {cfg.segment_size}: wall {wall * 1e3:.1f} ms "
+        f"(runs {', '.join(f'{w * 1e3:.1f}' for w in walls)}; host done issuing after "
+        f"{', '.join(f'{h * 1e3:.1f}' for h in hosts)}) = {samples / wall:.0f} samples/s; "
+        f"generator forward+backward {gen_ms:.1f} ms ({gen_ms / (wall * 1e3):.1%}); peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    busy, top = device_breakdown(torch, lambda: trainer.train_step(batch), top=8)
+    b2 = sum(ms for ms, name in device_breakdown.last if "tap_dots_kernel" in name)
+    b1 = sum(ms for ms, name in device_breakdown.last if "mel_" in name and "_kernel" in name)
+    log(f"  trace: kernels {busy:.2f} ms of {wall * 1e3:.2f} ms wall, idle share "
+        f"{1 - busy / (wall * 1e3):.3f}, {device_breakdown.launches} device events; B2 "
+        f"{b2:.2f} ms ({b2 / busy:.1%} of kernel time), B1 {b1:.3f} ms; top: "
+        + "; ".join(f"{ms:.2f} ms {name[:70]}" for ms, name in top))
+    runtime = sorted(device_breakdown.runtime.items(), key=lambda kv: -kv[1][1])[:5]
+    log("  host: CUDA runtime calls " + "; ".join(
+        f"{name} x{count} {ms:.1f} ms" for name, (count, ms) in runtime))
+
+
 def main():
     import torch
 
@@ -440,13 +737,22 @@ def main():
     shutil.rmtree(WORK, ignore_errors=True)
     WORK.mkdir(parents=True)
     try:
-        record = phase_kernels(torch, device, smi)
-        record["launches"] = phase_main_path(torch, device)
+        build_kernels()
+        b1 = phase_kernels(torch, device, smi)
+        b2 = phase_tap_dots(torch, device, smi)
+        serving = phase_serving(torch, device)
+        train = phase_training(torch, device, smi)
+        # launches on this slice's main path (training); serving's B1 count
+        # is checked in phase_serving
+        b1["launches"], b2["launches"] = train["b1"], train["b2"]
+        log(f"B1 launches: serving path {serving}, training path {train['b1']}")
         phase_reference(torch, device)
+        phase_gan_reference(torch, device)
         phase_timing(torch, device, smi)
+        phase_train_timing(torch, train["trainer"], smi)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": [b1, b2]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

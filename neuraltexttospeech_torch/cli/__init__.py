@@ -1,2 +1,2 @@
-"""Serving entry points: ``fastpitch_infer`` (text → mel → wav) and
-``hifigan_infer`` (mel or wav → wav)."""
+"""Entry points: ``fastpitch_infer`` (text → mel → wav), ``hifigan_infer``
+(mel or wav → wav) and ``hifigan_train`` (HiFi-GAN GAN training)."""

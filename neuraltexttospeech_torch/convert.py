@@ -18,6 +18,11 @@ once converted with ``np.asarray``; nothing here imports flax. Mappings:
   at load into ``w = v · rsqrt(Σ v² + 1e-12) · scale``, the sum over every
   axis but the last (Cout for a conv, in-features for the transposed conv).
 
+For training (:func:`hifigan_train_from_flax`) weight norm is kept: the
+kernel becomes the parametrization's ``original0`` (``v``, in the torch
+layout) and the scale its ``original1`` (``nn/norms.py``); the MSD's
+spectral-norm stats ``u`` and ``sigma`` become the ``sn.<i>`` buffers.
+
 Every leaf must be consumed, or the conversion raises. The one exception is
 FastPitch's ``attention`` subtree (the ``ConvAttention`` aligner), which only
 the training forward uses: it is skipped by name.
@@ -32,9 +37,18 @@ from typing import Dict
 import numpy as np
 import torch
 
-__all__ = ["fastpitch_from_flax", "generator_from_flax", "fold_weight_norm"]
+__all__ = ["fastpitch_from_flax", "generator_from_flax", "fold_weight_norm",
+           "hifigan_train_from_flax"]
 
 _WN_EPS = 1e-12
+_WN = ".parametrizations.weight."
+
+
+def _plain(tree):
+    """A copy of nested mappings as nested dicts (the reader pops from it)."""
+    if isinstance(tree, Mapping):
+        return {k: _plain(v) for k, v in tree.items()}
+    return tree
 
 
 def _params(tree) -> dict:
@@ -43,10 +57,10 @@ def _params(tree) -> dict:
     return tree
 
 
-def fold_weight_norm(tree: Mapping) -> dict:
-    """A copy of ``tree`` with every ``WeightNorm_i`` scale folded into the
-    kernel of the layer it wraps, and the ``WeightNorm_i`` dicts removed."""
-    out = {k: (fold_weight_norm(v) if isinstance(v, Mapping) else np.asarray(v))
+def split_weight_norm(tree: Mapping) -> dict:
+    """A copy of ``tree`` where each ``WeightNorm_i`` scale sits beside the
+    kernel of the layer it wraps, as ``wn_scale``."""
+    out = {k: (split_weight_norm(v) if isinstance(v, Mapping) else np.asarray(v))
            for k, v in tree.items() if not k.startswith("WeightNorm_")}
     for key, wn in tree.items():
         if not key.startswith("WeightNorm_"):
@@ -58,10 +72,24 @@ def fold_weight_norm(tree: Mapping) -> dict:
             node = out
             for name in layer:
                 node = node[name]
-            v = np.asarray(node["kernel"], np.float32)
-            axes = tuple(range(v.ndim - 1))
-            norm = 1.0 / np.sqrt(np.sum(v * v, axis=axes, keepdims=True) + _WN_EPS)
-            node["kernel"] = v * norm * np.asarray(scale, np.float32)
+            node["wn_scale"] = np.asarray(scale, np.float32)
+    return out
+
+
+def fold_weight_norm(tree: Mapping) -> dict:
+    """A copy of ``tree`` with every ``WeightNorm_i`` scale folded into the
+    kernel of the layer it wraps, and the ``WeightNorm_i`` dicts removed."""
+    return _fold_scales(split_weight_norm(tree))
+
+
+def _fold_scales(node: dict) -> dict:
+    out = {k: (_fold_scales(v) if isinstance(v, dict) else v)
+           for k, v in node.items() if k != "wn_scale"}
+    if "wn_scale" in node:
+        v = np.asarray(out["kernel"], np.float32)
+        axes = tuple(range(v.ndim - 1))
+        norm = 1.0 / np.sqrt(np.sum(v * v, axis=axes, keepdims=True) + _WN_EPS)
+        out["kernel"] = v * norm * node["wn_scale"]
     return out
 
 
@@ -190,3 +218,72 @@ def generator_from_flax(params: dict) -> Dict[str, torch.Tensor]:
     _conv(sd, "conv_post", r, "Conv_1")
     r.finish()
     return sd
+
+
+def _wn_conv(sd, key, r: _Reader, *path, kernel=lambda k: k.transpose(2, 1, 0)):
+    """A weight-normed conv: kernel → ``v`` (``kernel`` maps it to the torch
+    layout), scale, bias."""
+    sd[f"{key}{_WN}original0"] = _t(kernel(r.pop(*path, "kernel")))
+    sd[f"{key}{_WN}original1"] = _t(r.pop(*path, "wn_scale"))
+    sd[f"{key}.bias"] = _t(r.pop(*path, "bias"))
+
+
+def _generator_train(r: _Reader) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    _wn_conv(sd, "conv_pre", r, "Conv_0")
+    for i in range(r.count(prefix="ConvTranspose")):
+        _wn_conv(sd, f"ups.{i}", r, f"ConvTranspose_{i}")
+    kind = "ResBlock1" if r.count(prefix="ResBlock1") else "ResBlock2"
+    for i in range(r.count(prefix=kind)):
+        n_convs = r.count(f"{kind}_{i}", prefix="Conv")
+        if kind == "ResBlock1":
+            for d in range(n_convs // 2):
+                _wn_conv(sd, f"resblocks.{i}.convs1.{d}", r, f"{kind}_{i}", f"Conv_{2 * d}")
+                _wn_conv(sd, f"resblocks.{i}.convs2.{d}", r, f"{kind}_{i}", f"Conv_{2 * d + 1}")
+        else:
+            for d in range(n_convs):
+                _wn_conv(sd, f"resblocks.{i}.convs.{d}", r, f"{kind}_{i}", f"Conv_{d}")
+    _wn_conv(sd, "conv_post", r, "Conv_1")
+    return sd
+
+
+def hifigan_train_from_flax(gen: dict, mpd: dict, msd: dict, msd_stats: dict):
+    """flax HiFi-GAN train params → state dicts of the port's training
+    modules, weight norm kept: ``(Generator(weight_norm=True),
+    MultiPeriodDiscriminator, MultiScaleDiscriminator)``. ``msd_stats`` is the
+    ``batch_stats`` tree of the MSD's spectral norm. Raises on any leaf it
+    does not consume."""
+    rg = _Reader(split_weight_norm(_params(gen)))
+    gen_sd = _generator_train(rg)
+    rg.finish()
+
+    rp = _Reader(split_weight_norm(_params(mpd)))
+    mpd_sd: Dict[str, torch.Tensor] = {}
+    for i in range(rp.count(prefix="DiscriminatorP")):
+        n = rp.count(f"DiscriminatorP_{i}", prefix="Conv")
+        for j in range(n):  # kernel [5, 1, Cin, Cout] -> [Cout, Cin, 5]
+            key = (f"discriminators.{i}.convs.{j}" if j < n - 1
+                   else f"discriminators.{i}.conv_post")
+            _wn_conv(mpd_sd, key, rp, f"DiscriminatorP_{i}", f"Conv_{j}",
+                     kernel=lambda k: k[:, 0].transpose(2, 1, 0))
+    rp.finish()
+
+    rs = _Reader(split_weight_norm(_params(msd)))
+    stats = _Reader(_plain(msd_stats.get("batch_stats", msd_stats)))
+    msd_sd: Dict[str, torch.Tensor] = {}
+    for i in range(rs.count(prefix="DiscriminatorS")):
+        name = f"DiscriminatorS_{i}"
+        n = rs.count(name, prefix="Conv")
+        for j in range(n):
+            key = f"discriminators.{i}." + (f"convs.{j}" if j < n - 1 else "conv_post")
+            if "wn_scale" in rs.node(name, f"Conv_{j}"):
+                _wn_conv(msd_sd, key, rs, name, f"Conv_{j}")
+                continue
+            _conv(msd_sd, key, rs, name, f"Conv_{j}")
+            sn = next(k for k in stats.node(name) if f"Conv_{j}/kernel/u" in stats.node(name, k))
+            msd_sd[f"discriminators.{i}.sn.{j}.u"] = _t(stats.pop(name, sn, f"Conv_{j}/kernel/u"))
+            msd_sd[f"discriminators.{i}.sn.{j}.sigma"] = _t(
+                stats.pop(name, sn, f"Conv_{j}/kernel/sigma"))
+    rs.finish()
+    stats.finish()
+    return gen_sd, mpd_sd, msd_sd

@@ -1,1 +1,1 @@
-"""Filelist parsing and WAV IO."""
+"""Filelist parsing and WAV IO, the vocoder dataset, batch prefetching."""

@@ -21,7 +21,7 @@ from .hifigan import Generator, HiFiGANConfig
 
 __all__ = ["CONFIG_REGISTRY", "MODEL_REGISTRY", "config_to_dict", "config_from_dict",
            "find_model_config", "load_model_config", "load_frontend_config",
-           "save_checkpoint", "load_checkpoint"]
+           "save_model_config", "save_checkpoint", "load_checkpoint"]
 
 MODEL_REGISTRY: Dict[str, type] = {"FastPitch": FastPitch, "HiFiGAN": Generator}
 CONFIG_REGISTRY: Dict[str, type] = {"FastPitch": FastPitchConfig,
@@ -88,16 +88,22 @@ def load_frontend_config(path, default=None):
     return json.loads(found.read_text()).get("frontend", default)
 
 
-def save_checkpoint(output_dir, name: str, config, state_dict,
-                    frontend=None) -> pathlib.Path:
-    """Write ``model.pt`` and ``model_config.json`` into ``output_dir``."""
+def save_model_config(output_dir, name: str, config, frontend=None) -> pathlib.Path:
+    """Write ``model_config.json`` into ``output_dir`` (a run or checkpoint dir)."""
     p = pathlib.Path(output_dir)
     p.mkdir(parents=True, exist_ok=True)
-    torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, p / WEIGHTS_FILE)
     payload = {"model": name, "config": config_to_dict(config)}
     if frontend:
         payload["frontend"] = frontend
     (p / "model_config.json").write_text(json.dumps(payload, indent=1))
+    return p
+
+
+def save_checkpoint(output_dir, name: str, config, state_dict,
+                    frontend=None) -> pathlib.Path:
+    """Write ``model.pt`` and ``model_config.json`` into ``output_dir``."""
+    p = save_model_config(output_dir, name, config, frontend)
+    torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, p / WEIGHTS_FILE)
     return p
 
 

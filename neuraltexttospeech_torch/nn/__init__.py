@@ -1,1 +1,2 @@
-"""Shared layers and the FFT transformer stack."""
+"""Shared layers, the FFT transformer stack, flax-exact weight and spectral
+norm, and the MSD's folded grouped conv (``fastconv``)."""

@@ -7,7 +7,8 @@ unchanged tree reuses the library. The library is loaded with ``ctypes``;
 the wrappers pass ``tensor.data_ptr()`` and PyTorch's current stream. Sources
 include no PyTorch header, which keeps a build to seconds.
 
-A failed build raises; nothing falls back to a plain version.
+A failed build raises; nothing falls back to a plain version. Two sources
+build at once from two threads (one ``nvcc`` each); a source is built once.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
+_source_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -42,6 +44,8 @@ def _nvcc() -> str:
 def load(source: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<source>``, built first if needed."""
     with _lock:
+        source_lock = _source_locks.setdefault(source, threading.Lock())
+    with source_lock:
         if source not in _libs:
             src = CSRC_DIR / source
             digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + src.read_bytes())

@@ -16,11 +16,16 @@ takes the log (the design and its bound are in that file).
 :func:`fused_frames_to_mel` takes it only for a CPU tensor. For a CUDA
 tensor it launches the kernel or raises.
 
-Forward only: the backward (for the HiFi-GAN mel loss) comes with training.
+:func:`fused_frames_to_mel` is differentiable. Its backward is the analytic
+VJP ``_mel_bwd`` of the JAX module (:75-114), which is plain XLA there and
+plain PyTorch here: f32 matmuls (TF32 off) against the same constants on both
+devices, recomputing the spectrum from the frames. It passes no gradient
+below the clip or where ``|X|^2 = 0``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -31,7 +36,7 @@ from ..audio.mel import linear_to_mel_weight_matrix
 from ..audio.stft import STFTConfig, windowed_frames
 from . import _build
 
-__all__ = ["fused_mel_spectrogram", "fused_frames_to_mel",
+__all__ = ["fused_mel_spectrogram", "fused_frames_to_mel", "frames_to_mel_backward",
            "frames_to_mel_reference", "SOURCE"]
 
 SOURCE = "mel_kernel.cu"
@@ -122,15 +127,8 @@ def _launcher():
     return fn
 
 
-def fused_frames_to_mel(frames: torch.Tensor,
-                        config: STFTConfig = STFTConfig()) -> torch.Tensor:
-    """Windowed frames [N, fft_length] -> log-mel [N, n_mel_channels].
-
-    A CUDA tensor goes through the kernel, which takes contiguous float32
-    frames and raises on anything else; a CPU tensor goes through
-    :func:`frames_to_mel_reference`. ``fused_frames_to_mel.launches`` counts
-    the kernel's launches.
-    """
+def _frames_to_mel_forward(frames: torch.Tensor, config: STFTConfig) -> torch.Tensor:
+    """The kernel on a CUDA tensor, the plain twin on a CPU tensor."""
     if not frames.is_cuda:
         return frames_to_mel_reference(frames, config)
     fft_length = config.filter_length
@@ -165,6 +163,75 @@ def fused_frames_to_mel(frames: torch.Tensor,
         raise RuntimeError(f"log-mel kernel launch failed: CUDA error {err}")
     fused_frames_to_mel.launches += 1
     return out
+
+
+@contextlib.contextmanager
+def _f32_matmuls():
+    """cuBLAS in full f32 for the block (TF32 off), restored after."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def frames_to_mel_backward(frames: torch.Tensor, grad: torch.Tensor,
+                           config: STFTConfig) -> torch.Tensor:
+    """Analytic VJP of the log-mel w.r.t. the frames (``_mel_bwd`` of the
+    JAX module): recompute re, im, |X|^2 and the mel, then chain log∘clip,
+    the mel product, |X|^p and the DFT products back. [N, fft_length]."""
+    dr, di, basis = _reference_constants(config, frames.device)
+    frames, grad = frames.float(), grad.float()
+    with _f32_matmuls():
+        re = frames @ dr
+        im = frames @ di
+        mag_sq = re * re + im * im
+        half_p = config.magnitude_power / 2.0
+        powered = _power(mag_sq, config.magnitude_power)
+        mel = powered @ basis
+        # d log(clip(mel, 1e-5)) / d mel: zero below the clip
+        g_mel = torch.where(mel >= 1e-5, grad / torch.clamp(mel, min=1e-5),
+                            torch.zeros_like(mel))
+        g_pow = g_mel @ basis.t()
+        # d |X|^p / d |X|^2, zero where |X|^2 = 0 (no inf * 0)
+        if half_p == 1.0:
+            g_magsq = g_pow
+        elif half_p == 0.5:
+            g_magsq = torch.where(mag_sq > 0.0, 0.5 * g_pow / torch.clamp(powered, min=1e-30),
+                                  torch.zeros_like(g_pow))
+        else:
+            g_magsq = torch.where(
+                mag_sq > 0.0,
+                half_p * g_pow * torch.pow(torch.clamp(mag_sq, min=1e-30), half_p - 1.0),
+                torch.zeros_like(g_pow))
+        return (2.0 * re * g_magsq) @ dr.t() + (2.0 * im * g_magsq) @ di.t()
+
+
+class _FramesToMel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, frames, config):
+        ctx.config = config
+        ctx.save_for_backward(frames)
+        return _frames_to_mel_forward(frames, config)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (frames,) = ctx.saved_tensors
+        return frames_to_mel_backward(frames, grad, ctx.config), None
+
+
+def fused_frames_to_mel(frames: torch.Tensor,
+                        config: STFTConfig = STFTConfig()) -> torch.Tensor:
+    """Windowed frames [N, fft_length] -> log-mel [N, n_mel_channels],
+    differentiable (:func:`frames_to_mel_backward`).
+
+    A CUDA tensor goes through the kernel, which takes contiguous float32
+    frames and raises on anything else; a CPU tensor goes through
+    :func:`frames_to_mel_reference`. ``fused_frames_to_mel.launches`` counts
+    the kernel's launches.
+    """
+    return _FramesToMel.apply(frames, config)
 
 
 fused_frames_to_mel.launches = 0

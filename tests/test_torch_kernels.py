@@ -108,3 +108,97 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError):  # no instantiation for 40 mels
         mel_kernel.fused_frames_to_mel(frames, STFTConfig(n_mel_channels=40))
     assert mel_kernel.fused_frames_to_mel(frames[:0], cfg).shape == (0, 80)
+
+
+# ------------------------------------------------------- B1's backward, B2
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("power", [0.5, 2.0])
+def test_cuda_mel_loss_has_a_gradient_equal_to_the_twins(cuda_device, power):
+    """A loss through the kernel keeps its ``grad_fn``, and the analytic
+    backward equals autograd through the plain twin (scaled 1e-4, the
+    budget of ``tests/test_audio.py``'s VJP test)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = STFTConfig(magnitude_power=power)
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal((2, 8192)).astype(np.float32)
+                        * 0.2, device=cuda_device)
+    frames = windowed_frames(x, 1024, 256, 1024).reshape(-1, 1024).contiguous()
+    grads = []
+    for fn in (mel_kernel.fused_frames_to_mel, mel_kernel.frames_to_mel_reference):
+        f = frames.clone().requires_grad_()
+        out = fn(f, cfg)
+        assert out.grad_fn is not None
+        torch.sum(torch.cos(out)).backward()
+        grads.append(f.grad)
+    scale = grads[1].abs().max()
+    torch.testing.assert_close(grads[0] / scale, grads[1] / scale, atol=1e-4, rtol=0)
+
+
+# (g, B, Qp, X, Y, kf, s, q): forward shapes of the v1 MSD's first scale and
+# one dx shape, then a third-scale shape (q = 16) and a ragged q
+B2_SHAPES = [
+    (4, 16, 1030, 256, 128, 7, 1, 1024),
+    (16, 16, 260, 128, 128, 5, 1, 256),
+    (16, 16, 66, 512, 256, 3, 1, 64),
+    (16, 16, 70, 256, 128, 7, 1, 64),
+    (16, 16, 84, 128, 128, 21, 1, 64),
+    (4, 16, 1038, 128, 256, 7, 1, 1032),
+    (16, 16, 36, 128, 128, 21, 1, 16),
+    (4, 3, 29, 128, 512, 5, 3, 17),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", B2_SHAPES)
+def test_cuda_tap_dots_match_plain_twin(cuda_device, shape):
+    from neuraltexttospeech_torch.ops import gouter_kernel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g, b, qp, x_dim, y_dim, kf, s, q = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    xp = torch.randn(g, b, qp, x_dim, device=cuda_device, generator=gen)
+    wf = torch.randn(kf, g, x_dim, y_dim, device=cuda_device, generator=gen) / (kf * x_dim) ** 0.5
+    before = gouter_kernel.gouter_tap_dots_kernel.launches
+    got = gouter_kernel.gouter_tap_dots_kernel(xp, wf, s, q)
+    torch.cuda.synchronize()
+    assert gouter_kernel.gouter_tap_dots_kernel.launches == before + 1
+    want = gouter_kernel.gouter_tap_dots_reference(xp, wf, s, q)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_cuda_tap_dots_autograd_matches_twin(cuda_device):
+    """Forward and dx through the kernel (two launches), dw through einsum,
+    against autograd through the per-tap loop."""
+    from neuraltexttospeech_torch.nn.fastconv import gouter_tap_dots
+    from neuraltexttospeech_torch.ops import gouter_kernel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g, b, q, x_dim, y_dim, kf, s = 16, 4, 40, 256, 128, 7, 2
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    xp = torch.randn(g, b, q + (kf - 1) * s, x_dim, device=cuda_device, generator=gen)
+    wf = torch.randn(kf, g, x_dim, y_dim, device=cuda_device, generator=gen) * 0.03
+    dy = torch.randn(g, b, q, y_dim, device=cuda_device, generator=gen)
+    grads = []
+    for fn in (gouter_tap_dots, gouter_kernel.gouter_tap_dots_reference):
+        x, w = xp.clone().requires_grad_(), wf.clone().requires_grad_()
+        before = gouter_kernel.gouter_tap_dots_kernel.launches
+        (fn(x, w, s, q) * dy).sum().backward()
+        grads.append((x.grad, w.grad, gouter_kernel.gouter_tap_dots_kernel.launches - before))
+    assert grads[0][2] == 2 and grads[1][2] == 0
+    for a, b_ in zip(grads[0][:2], grads[1][:2]):
+        torch.testing.assert_close(a, b_, rtol=1e-5, atol=1e-5 * b_.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_cuda_tap_dots_refuse_what_the_kernel_does_not_take(cuda_device):
+    from neuraltexttospeech_torch.ops import gouter_kernel
+
+    xp = torch.zeros(4, 2, 20, 128, device=cuda_device)
+    wf = torch.zeros(3, 4, 128, 128, device=cuda_device)
+    for args in ((xp[..., :64].contiguous(), wf[:, :, :64].contiguous(), 1, 8),
+                 (xp.double(), wf.double(), 1, 8), (xp, wf, 1, 19),
+                 (xp, torch.zeros(3, 4, 128, 96, device=cuda_device), 1, 8),
+                 (xp.transpose(2, 3), wf, 1, 8)):
+        with pytest.raises(ValueError):
+            gouter_kernel.gouter_tap_dots_kernel(*args)
