@@ -9,9 +9,10 @@ Phases, each raising on failure:
 2. Kernels: build both kernels from ``ops/csrc`` (one ``nvcc`` each, at
    once), hold each against its plain PyTorch twin on the card (TF32 off)
    and time the kernel, the twin and the PyTorch library call for the same
-   function: B1 (log-mel) forward and its analytic backward; B2 (the MSD's
-   tap-window grouped GEMM) at every distinct MSD shape of a v1 GAN step,
-   forward and dx.
+   function, by device time (the profiler's kernel time) and by CUDA events
+   over back-to-back calls (which include the host's dispatch): B1 (log-mel)
+   forward and its analytic backward; B2 (the MSD's tap-window grouped GEMM)
+   at every distinct MSD shape of a v1 GAN step, forward and dx.
 3. Serving path, through the two serving CLIs with full-width FastPitch and
    HiFi-GAN v1 (random weights from a seed): text → wav for 16 sentences,
    then wav → wav copy-synthesis, whose log-mels go through B1.
@@ -113,6 +114,26 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, reps=10):
+    """Device time of one call of ``fn`` (ms): the card's busy time over a
+    trace of ``reps`` calls (:func:`device_breakdown`; for kernels that run
+    one after another, the sum of their ``self_device_time_total``), per
+    call. Unlike :func:`cuda_ms` it leaves out the host's dispatch between
+    kernels."""
+    fn()
+    torch.cuda.synchronize()
+    # Now and then a trace comes back without the card's records (seen a few
+    # times in a few hundred traces, twice in a row at most): trace again.
+    for attempt in range(6):
+        busy, _ = device_breakdown(torch, lambda: [fn() for _ in range(reps)])
+        if busy > 0:
+            return busy / reps
+        log(f"  device_ms: trace {attempt + 1} holds no device time; host runtime calls "
+            f"{device_breakdown.runtime}")
+        time.sleep(0.2)
+    raise RuntimeError("the profiler recorded no device time for a call that launches kernels")
+
+
 def synthetic_wavs(n, seconds, seed):
     """Sines plus noise, [n, seconds·SR] float32 in (-1, 1)."""
     rng = np.random.default_rng(seed)
@@ -161,8 +182,14 @@ def build_kernels():
     t0 = time.perf_counter()
     sources = (mel_kernel.SOURCE, gouter_kernel.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
-        list(pool.map(_build.load, sources))
+        libs = dict(zip(sources, pool.map(_build.load, sources)))
     log(f"kernels built: {', '.join(sources)} ({time.perf_counter() - t0:.1f} s)")
+    sass = subprocess.run([_build.tool("cuobjdump"), "-sass", libs[gouter_kernel.SOURCE]._name],
+                          capture_output=True, text=True, check=True).stdout
+    n = sass.count("HGMMA")
+    log(f"B2's SASS holds {n} HGMMA (wgmma) instructions")
+    if not n:
+        raise RuntimeError("B2 was compiled without wgmma: no HGMMA in its SASS")
 
 
 def phase_kernels(torch, device, card):
@@ -208,23 +235,27 @@ def phase_kernels(torch, device, card):
         lib_out = library().reshape(-1, 80)
         torch.testing.assert_close(lib_out, mel_kernel.frames_to_mel_reference(frames, cfg),
                                    **tol)
+        fns = {"kernel": lambda: mel_kernel.fused_frames_to_mel(frames, cfg),
+               "plain": lambda: mel_kernel.frames_to_mel_reference(frames, cfg),
+               "library": library}
         iters = 20 if n < 2000 else 10
-        ms = cuda_ms(lambda: mel_kernel.fused_frames_to_mel(frames, cfg), iters)
-        plain_ms = cuda_ms(lambda: mel_kernel.frames_to_mel_reference(frames, cfg), iters)
-        library_ms = cuda_ms(library, iters)
+        ev = {k: cuda_ms(fn, iters) for k, fn in fns.items()}  # back-to-back calls
+        dev = {k: device_ms(torch, fn) for k, fn in fns.items()}  # kernels only
         bound_ms, bound_by, dft_bound_ms = logmel_bound_ms(n, cfg)
-        log(f"B1 {label} N={n}: kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
-            f"torch.stft path {library_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us "
-            f"({bound_by}; rFFT + sparse mel), {bound_ms / ms:.2%} of it reached; "
-            f"bound of the DFT-matmul form {dft_bound_ms * 1e3:.1f} us, "
-            f"{dft_bound_ms / ms:.1%} of it reached [{card}]")
+        log(f"B1 {label} N={n}: device time kernel {dev['kernel'] * 1e3:.2f} us, plain "
+            f"{dev['plain'] * 1e3:.2f} us, torch.stft path {dev['library'] * 1e3:.2f} us; "
+            f"CUDA events over back-to-back calls kernel {ev['kernel'] * 1e3:.2f} us, plain "
+            f"{ev['plain'] * 1e3:.2f} us, torch.stft path {ev['library'] * 1e3:.2f} us; "
+            f"bound {bound_ms * 1e3:.2f} us ({bound_by}; rFFT + sparse mel), "
+            f"{bound_ms / dev['kernel']:.1%} of it reached by device time; bound of the "
+            f"DFT-matmul form {dft_bound_ms * 1e3:.1f} us [{card}]")
         if label == "one_wav":
             record = {"name": "mel_kernel.fused_frames_to_mel", "route": "cuda",
                       "source": "neuraltexttospeech_torch/ops/csrc/mel_kernel.cu",
                       "replaces": "neuraltexttospeech_tpu/ops/mel_kernel.py:163",
-                      "launches": None, "max_abs_err": err, "ms": ms,
-                      "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by, "library_ms": library_ms}
+                      "launches": None, "max_abs_err": err, "ms": dev["kernel"],
+                      "plain_ms": dev["plain"], "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": dev["library"]}
         if label == "train_16x8192":
             check_mel_backward(torch, frames, cfg, card)
     return record
@@ -290,68 +321,92 @@ def msd_tap_shapes(batch, length):
 
 
 def tap_dots_bound_ms(shape):
-    """Least time an H100 could take for one tap-window call (NVIDIA's SXM
-    peaks: 67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s): the larger
-    of 2*g*B*kf*q*X*Y FLOP and the bytes of xp, wf and y, each once."""
+    """Least time an H100 could take for one f32-accurate tap-window call
+    (NVIDIA's SXM peaks): the larger of 2*g*B*kf*q*X*Y FLOP at 495/3 TFLOP/s
+    (the TF32 tensor cores' dense rate, three products per f32 product) and
+    the bytes of xp, wf and y, each once, at 3.35 TB/s. Returns
+    ``(bound_ms, bound_by, t_ops_ms, t_bytes_ms, fma_bound_ms)``, the last
+    the same bound for f32 FMAs on the CUDA cores (67 TFLOP/s)."""
     g, b, qp, x_dim, y_dim, kf, s, q = shape
     flop = 2 * g * b * kf * q * x_dim * y_dim
     nbytes = 4 * (g * b * qp * x_dim + kf * g * x_dim * y_dim + g * b * q * y_dim)
-    t_ops, t_bytes = flop / 67e12, nbytes / 3.35e12
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    t_ops, t_bytes = flop / (495e12 / 3) * 1e3, nbytes / 3.35e12 * 1e3
+    fma_ms = max(flop / 67e12 * 1e3, t_bytes)
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", t_ops, t_bytes,
+            fma_ms)
+
+
+# kernel names of B2 in a profile (its prologue, main kernel and split-K sum)
+B2_KERNELS = ("tap_dots", "split_weights_kernel", "sum_splits_kernel")
 
 
 def phase_tap_dots(torch, device, card):
     """B2 at every distinct MSD shape of a v1 GAN step (batch 16 × 8192),
-    forward and dx: held against the twin (rtol 1e-5, atol 1e-5·max|y|),
+    forward and dx (the dx form: weights flipped and transposed in the
+    kernel, ``flip_t``): held against the twin (rtol 1e-5, atol 1e-5·max|y|),
     timed beside the twin, grouped F.conv1d and the bound. Returns the JSON
     record (sums over the distinct shapes)."""
     from neuraltexttospeech_torch.ops import gouter_kernel
 
     F = torch.nn.functional
     gen = torch.Generator(device=device).manual_seed(0)
-    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, t_ops=0.0, t_bytes=0.0)
+    keys = ("ms", "plain_ms", "library_ms", "ev_ms", "ev_plain_ms", "ev_library_ms",
+            "bound_ms", "t_ops", "t_bytes", "fma_bound_ms")
+    totals = dict.fromkeys(keys, 0.0)
     worst = 0.0
     for scale, layer, fwd, dx in msd_tap_shapes(16, 8192):
-        for kind, shape in (("fwd", fwd), ("dx", dx)):
+        for kind, shape, flip_t in (("fwd", fwd, False), ("dx", dx, True)):
             g, b, qp, x_dim, y_dim, kf, s, q = shape
             xp = torch.randn(g, b, qp, x_dim, device=device, generator=gen)
-            wf = torch.randn(kf, g, x_dim, y_dim, device=device,
-                             generator=gen) / (kf * x_dim) ** 0.5
-            got = gouter_kernel.gouter_tap_dots_kernel(xp, wf, s, q)
-            want = gouter_kernel.gouter_tap_dots_reference(xp, wf, s, q)
+            w_shape = (kf, g, y_dim, x_dim) if flip_t else (kf, g, x_dim, y_dim)
+            wf = torch.randn(*w_shape, device=device, generator=gen) / (kf * x_dim) ** 0.5
+            got = gouter_kernel.gouter_tap_dots_kernel(xp, wf, s, q, flip_t)
+            want = gouter_kernel.gouter_tap_dots_reference(xp, wf, s, q, flip_t)
             torch.cuda.synchronize()
             d = (got - want).abs().max().item()
             scale_y = want.abs().max().item()
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale_y)
             worst = max(worst, d)
             # the library call: grouped, dilated conv1d over [B, g*X, Qp]
+            w_eff = torch.flip(wf, (0,)).transpose(-1, -2) if flip_t else wf
             x_lib = xp.permute(1, 0, 3, 2).reshape(b, g * x_dim, qp).contiguous()
-            w_lib = wf.permute(1, 3, 2, 0).reshape(g * y_dim, x_dim, kf).contiguous()
+            w_lib = w_eff.permute(1, 3, 2, 0).reshape(g * y_dim, x_dim, kf).contiguous()
             lib = F.conv1d(x_lib, w_lib, dilation=s, groups=g)
             torch.testing.assert_close(lib.reshape(b, g, y_dim, q).permute(1, 0, 3, 2), want,
                                        rtol=1e-4, atol=1e-4 * scale_y)
-            ms = cuda_ms(lambda: gouter_kernel.gouter_tap_dots_kernel(xp, wf, s, q), 5)
-            plain_ms = cuda_ms(lambda: gouter_kernel.gouter_tap_dots_reference(xp, wf, s, q), 5)
-            library_ms = cuda_ms(lambda: F.conv1d(x_lib, w_lib, dilation=s, groups=g), 5)
-            bound_ms, bound_by = tap_dots_bound_ms(shape)
+            fns = {"": lambda: gouter_kernel.gouter_tap_dots_kernel(xp, wf, s, q, flip_t),
+                   "plain_": lambda: gouter_kernel.gouter_tap_dots_reference(xp, wf, s, q, flip_t),
+                   "library_": lambda: F.conv1d(x_lib, w_lib, dilation=s, groups=g)}
+            t = {}
+            for name, fn in fns.items():
+                t[f"ev_{name}ms"] = cuda_ms(fn, 5)
+                t[f"{name}ms"] = device_ms(torch, fn, 3)
+            t["bound_ms"], bound_by, t["t_ops"], t["t_bytes"], t["fma_bound_ms"] = \
+                tap_dots_bound_ms(shape)
             flop = 2 * g * b * kf * q * x_dim * y_dim
+            tile = gouter_kernel.plan_tiles(g, b * q, y_dim, kf * x_dim // 32,
+                                            torch.cuda.get_device_properties(device)
+                                            .multi_processor_count)
             log(f"B2 scale {scale} layer {layer} {kind} (g={g}, B={b}, Qp={qp}, X={x_dim}, "
-                f"Y={y_dim}, kf={kf}, s={s}, q={q}): max|kernel - plain| {d:.3e} "
-                f"({d / scale_y:.1e} of max|y|); kernel {ms * 1e3:.1f} us "
-                f"({flop / ms / 1e9:.1f} TFLOP/s), plain {plain_ms * 1e3:.1f} us, "
-                f"grouped conv1d {library_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.1f} us "
-                f"({bound_by}), {bound_ms / ms:.1%} of it reached")
-            for key, value in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
-                               ("bound_ms", bound_ms)):
-                totals[key] += value
-            totals["t_ops"] += flop / 67e12
-            totals["t_bytes"] += 4 * (g * b * qp * x_dim + kf * g * x_dim * y_dim
-                                      + g * b * q * y_dim) / 3.35e12
+                f"Y={y_dim}, kf={kf}, s={s}, q={q}; tile {64 * tile[0]}x{tile[1]}, "
+                f"{tile[2]} K splits): max|kernel - plain| {d:.3e} ({d / scale_y:.1e} of "
+                f"max|y|); device time kernel {t['ms'] * 1e3:.1f} us "
+                f"({flop / t['ms'] / 1e9:.1f} TFLOP/s), plain {t['plain_ms'] * 1e3:.1f} us, "
+                f"grouped conv1d {t['library_ms'] * 1e3:.1f} us; "
+                f"events kernel {t['ev_ms'] * 1e3:.1f} us, plain {t['ev_plain_ms'] * 1e3:.1f} us, "
+                f"conv1d {t['ev_library_ms'] * 1e3:.1f} us; bound {t['bound_ms'] * 1e3:.1f} us "
+                f"({bound_by}, 3xTF32), {t['bound_ms'] / t['ms']:.1%} of it reached; f32-FMA "
+                f"bound {t['fma_bound_ms'] * 1e3:.1f} us")
+            for key in keys:
+                totals[key] += t[key]
             del xp, wf, got, want, x_lib, w_lib, lib
-    log(f"B2 all distinct shapes of one MSD pass (15 forward + 15 dx): kernel "
+    log(f"B2 all distinct shapes of one MSD pass (15 forward + 15 dx), device time: kernel "
         f"{totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, grouped conv1d "
-        f"{totals['library_ms']:.3f} ms, bound {totals['bound_ms']:.3f} ms "
-        f"({totals['bound_ms'] / totals['ms']:.1%} reached) [{card}]")
+        f"{totals['library_ms']:.3f} ms; events: kernel {totals['ev_ms']:.3f} ms, plain "
+        f"{totals['ev_plain_ms']:.3f} ms, conv1d {totals['ev_library_ms']:.3f} ms; bound "
+        f"{totals['bound_ms']:.3f} ms (3xTF32 at 495/3 TFLOP/s; {totals['bound_ms'] / totals['ms']:.1%}"
+        f" reached), f32-FMA bound {totals['fma_bound_ms']:.3f} ms "
+        f"({totals['fma_bound_ms'] / totals['ms']:.1%}) [{card}]")
     return {"name": "gouter_kernel.gouter_tap_dots_kernel", "route": "cuda",
             "source": "neuraltexttospeech_torch/ops/csrc/gouter_kernel.cu",
             "replaces": "neuraltexttospeech_tpu/ops/gouter_kernel.py:114",
@@ -495,7 +550,8 @@ def phase_training(torch, device, card):
     mel = torch.randn(1, 32, cfg.num_mels, device=device)
     with torch.no_grad():
         torch.testing.assert_close(gen(mel), trainer.gen(mel), rtol=1e-4, atol=1e-5)
-    return {"b1": b1, "b2": b2, "trainer": trainer}
+    return {"b1": b1, "b2": b2, "b1_per_step": b1 // steps, "b2_per_step": b2 // steps,
+            "trainer": trainer}
 
 
 def phase_gan_reference(torch, device):
@@ -581,25 +637,36 @@ def phase_reference(torch, device):
 
 
 def device_breakdown(torch, fn, top=6):
-    """One traced call of ``fn``: total kernel time on the card (ms) and the
-    kernels that took most of it, as ``[(ms, name)]``; every kernel's time
-    and the number of device events stay on ``device_breakdown.last`` and
-    ``.launches``, the host's CUDA runtime calls on ``.runtime``."""
+    """One traced call of ``fn``: the card's busy time (ms, the union of its
+    kernels' intervals, so kernels that overlap count once) and the kernels
+    that took most time, as ``[(ms, name)]``. Every kernel's summed time, the
+    sum over all of them and the number of device events stay on
+    ``device_breakdown.last``, ``.kernel_sum`` and ``.launches``, the host's
+    CUDA runtime calls on ``.runtime``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)]  # ranges, not kernels
+
+    def on_device(e):  # GPU user annotations are ranges, not kernels
+        return e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+
+    events = [e for e in prof.key_averages() if on_device(e)]
     kernels = [(e.self_device_time_total / 1e3, e.key) for e in events]
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in prof.events() if on_device(e)):
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
     device_breakdown.last = kernels
+    device_breakdown.kernel_sum = sum(ms for ms, _ in kernels)
     device_breakdown.launches = sum(e.count for e in events)
     device_breakdown.runtime = {  # host side: CUDA runtime calls, (count, ms)
         e.key: (e.count, e.self_cpu_time_total / 1e3) for e in prof.key_averages()
         if e.device_type != DeviceType.CUDA and e.key.startswith(("cuda", "cu"))}
-    return sum(ms for ms, _ in kernels), sorted(kernels, reverse=True)[:top]
+    return busy / 1e3, sorted(kernels, reverse=True)[:top]
 
 
 def phase_timing(torch, device, card):
@@ -644,7 +711,7 @@ def phase_timing(torch, device, card):
             f"generator {gen_ms:.2f} ms; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
             f"[{card}]")
         busy, top = device_breakdown(torch, run)
-        log(f"  trace: kernels {busy:.2f} ms of {wall * 1e3:.2f} ms wall, idle share "
+        log(f"  trace: card busy {busy:.2f} ms of {wall * 1e3:.2f} ms wall, idle share "
             f"{1 - busy / (wall * 1e3):.3f}; top: "
             + "; ".join(f"{ms:.2f} ms {name[:70]}" for ms, name in top))
 
@@ -672,7 +739,7 @@ def phase_timing(torch, device, card):
     busy, top = device_breakdown(torch, copy_synthesis)
     log(f"copy-synthesis f32 (TF32 off): one 10 s wav: wall {wall:.4f} s = "
         f"{wall / 10.0:.3e} s per audio s [{card}]")
-    log(f"  trace: kernels {busy:.2f} ms of {wall * 1e3:.2f} ms wall, idle share "
+    log(f"  trace: card busy {busy:.2f} ms of {wall * 1e3:.2f} ms wall, idle share "
         f"{1 - busy / (wall * 1e3):.3f}; top: "
         + "; ".join(f"{ms:.2f} ms {name[:70]}" for ms, name in top))
 
@@ -707,11 +774,12 @@ def phase_train_timing(torch, trainer, card):
         f"generator forward+backward {gen_ms:.1f} ms ({gen_ms / (wall * 1e3):.1%}); peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
     busy, top = device_breakdown(torch, lambda: trainer.train_step(batch), top=8)
-    b2 = sum(ms for ms, name in device_breakdown.last if "tap_dots_kernel" in name)
+    b2 = sum(ms for ms, name in device_breakdown.last if any(k in name for k in B2_KERNELS))
     b1 = sum(ms for ms, name in device_breakdown.last if "mel_" in name and "_kernel" in name)
-    log(f"  trace: kernels {busy:.2f} ms of {wall * 1e3:.2f} ms wall, idle share "
-        f"{1 - busy / (wall * 1e3):.3f}, {device_breakdown.launches} device events; B2 "
-        f"{b2:.2f} ms ({b2 / busy:.1%} of kernel time), B1 {b1:.3f} ms; top: "
+    log(f"  trace: card busy {busy:.2f} ms of {wall * 1e3:.2f} ms wall (kernel times sum to "
+        f"{device_breakdown.kernel_sum:.2f} ms), idle share {1 - busy / (wall * 1e3):.3f}, "
+        f"{device_breakdown.launches} device events; B2 {b2:.2f} ms "
+        f"({b2 / device_breakdown.kernel_sum:.1%} of kernel time), B1 {b1:.3f} ms; top: "
         + "; ".join(f"{ms:.2f} ms {name[:70]}" for ms, name in top))
     runtime = sorted(device_breakdown.runtime.items(), key=lambda kv: -kv[1][1])[:5]
     log("  host: CUDA runtime calls " + "; ".join(
@@ -742,9 +810,9 @@ def main():
         b2 = phase_tap_dots(torch, device, smi)
         serving = phase_serving(torch, device)
         train = phase_training(torch, device, smi)
-        # launches on this slice's main path (training); serving's B1 count
-        # is checked in phase_serving
-        b1["launches"], b2["launches"] = train["b1"], train["b2"]
+        # launches per step on this slice's main path (training); serving's B1
+        # count is checked in phase_serving
+        b1["launches"], b2["launches"] = train["b1_per_step"], train["b2_per_step"]
         log(f"B1 launches: serving path {serving}, training path {train['b1']}")
         phase_reference(torch, device)
         phase_gan_reference(torch, device)

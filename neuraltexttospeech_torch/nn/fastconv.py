@@ -32,8 +32,8 @@ __all__ = ["gouter_tap_dots", "fold_gouter", "unfold_gouter", "regroup_gouter",
 class _TapDots(torch.autograd.Function):
     """``sum_mf xp[..., mf*s + t, :] @ wf[mf]`` with the backward of
     ``fastconv.py:91-108``: dx is the same tap-window sum (the kernel on the
-    card) over ``dy`` zero-padded by ``(kf-1)*s`` with flipped, transposed
-    weights; dw is one einsum over the kf windows."""
+    card) over ``dy`` zero-padded by ``(kf-1)*s`` with the weights flipped
+    and transposed (``flip_t``); dw is one einsum over the kf windows."""
 
     @staticmethod
     def forward(ctx, xp, wf, s: int, q: int):
@@ -50,11 +50,11 @@ class _TapDots(torch.autograd.Function):
         dxp = dwf = None
         if ctx.needs_input_grad[0]:
             # dxp[u] = sum_mf' dyp[u + mf'*s] @ wf[kf-1-mf']^T, with dyp = dy
-            # shifted right by pad and long enough for Qp output rows.
+            # shifted right by pad and long enough for Qp output rows; the
+            # kernel reads wf flipped and transposed in place (flip_t).
             pad = (kf - 1) * s
             dyp = F.pad(dy, (0, 0, pad, qp - q))
-            w_rev = torch.flip(wf, (0,)).transpose(-1, -2).contiguous()
-            dxp = gouter_tap_dots_kernel(dyp, w_rev, s, qp)
+            dxp = gouter_tap_dots_kernel(dyp, wf, s, qp, flip_t=True)
         if ctx.needs_input_grad[1]:
             # windows [g, B, kf, X, q] (a view), contracted over (b, t)
             win = xp.unfold(2, q, s)[:, :, :kf]

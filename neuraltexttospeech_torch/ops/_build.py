@@ -21,7 +21,7 @@ import subprocess
 import threading
 from typing import Dict
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "load"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "load", "tool"]
 
 CSRC_DIR = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "_build"
@@ -33,12 +33,13 @@ _source_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def tool(name: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     if CUDA_HOME is None:
         raise RuntimeError("no CUDA toolkit found: the kernels are built with nvcc")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
+    return os.path.join(CUDA_HOME, "bin", name)
 
 
 def load(source: str) -> ctypes.CDLL:
@@ -53,7 +54,7 @@ def load(source: str) -> ctypes.CDLL:
             if not lib.exists():
                 BUILD_DIR.mkdir(parents=True, exist_ok=True)
                 tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-                out = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                out = subprocess.run([tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                                      capture_output=True, text=True)
                 if out.returncode != 0:
                     raise RuntimeError(f"nvcc failed for {source} "

@@ -1,4 +1,5 @@
-// Tap-window grouped GEMM for Hopper (sm_90a): the MSD's folded grouped conv.
+// Tap-window grouped GEMM for Hopper (sm_90a): the MSD's folded grouped conv
+// on the tensor cores, f32-accurate by 3xTF32.
 //
 // Replaces neuraltexttospeech_tpu/ops/gouter_kernel.py::gouter_tap_dots_pallas
 // (pallas_call at :114, body :105-112). For xp [g, B, Qp, X] and
@@ -6,147 +7,445 @@
 //
 //   y[g, b, t, :] = sum_{mf < kf} xp[g, b, mf*s + t, :] @ wf[mf, g, :, :]
 //
-// for t < q, with f32 accumulation: per group g, a GEMM of M = B*q rows by
-// N = Y columns over K = kf*X, whose A operand row (b, t) for tap mf is the
-// shifted window row xp[g, b, mf*s + t]. No tap operand is materialised; the
-// window is addressed in place, as the TPU kernel did in VMEM. The backward's
-// dx is the same function on zero-padded dy with flipped, transposed weights
-// (nn/fastconv.py), so one kernel serves both.
+// for t < q: per group a GEMM of M = B*q rows by N = Y columns over
+// K = kf*X, whose A row (b, t) at tap mf is the shifted window row
+// xp[g, b, mf*s + t], addressed in place. The backward's dx is the same
+// function on zero-padded dy with the weights flipped over the taps and
+// transposed (nn/fastconv.py); `flip_t` selects that form, so one kernel
+// serves both.
 //
 // What bounds it on the card: operations. At the v1 MSD shapes a call does
-// 2*g*B*q*kf*X*Y FLOP against (xp + wf + y) bytes, some 70-500 FLOP per byte,
-// above the f32 balance of the H100 (67 TFLOP/s over 3.35 TB/s, about 20).
-// The HiFi-GAN loss budgets are f32 (TF32 off), so every product is an f32
-// FMA here; tensor cores (3xTF32 or bf16 wgmma, TMA) are later work.
+// 2*g*B*q*kf*X*Y FLOP against (xp + wf + y) bytes, 70-500 FLOP per byte.
+// The GAN tolerances rule out one-pass TF32 or bf16, and f32 FMAs on the
+// CUDA cores stop at 67 TFLOP/s. So each f32 operand is split into
+// hi = tf32(a) and lo = tf32(a - hi) (round to nearest, ties away), and
+// lo*hi + hi*lo + hi*hi (small terms first) runs on the TF32 tensor cores
+// (495 TFLOP/s dense, so about 165 TFLOP/s of f32-accurate work), about
+// 2^-22 relative per product. The tensor cores' accumulator does not round
+// to nearest, so each K block of 32 sums into a fresh wgmma accumulator that
+// is then added to an f32 register accumulator.
 //
-// Design, an SGEMM whose A tile is a gathered window: a 3-D grid, one block
-// per (64-row tile of the B*q rows, 64-column tile of Y, group). The row
-// index folds the batch in, so the short-q layers (q = 16 at the third
-// scale) still fill 64-row tiles, as the TPU kernel's batch blocking did.
-// The block walks K as (tap mf, 16-wide chunk of X): each step stages a
-// [64 rows x 16] window tile (stored k-major) and a [16 x 64] weight tile in
-// shared memory, double-buffered, with the next step's global loads held in
-// registers while the current tile is multiplied. Each of the 256 threads
-// keeps a 4x4 accumulator tile in registers. Rows past B*q read zeros and are
-// not written; X and Y are multiples of 16 and 64 (the wrapper checks), so
-// no other masks are needed.
+// Design:
+// - A prologue kernel writes the weights K-major and pre-split,
+//   [2 (hi, lo), kf, g, K/32, N, 32], each 128-byte row already in the
+//   128-byte swizzle that wgmma reads, so a B tile is one contiguous block
+//   that a bulk async copy (the TMA unit) moves into shared memory.
+// - The main kernel: one block per (tile of the B*q rows, tile of N,
+//   group[, K split]); one or two consumer warpgroups of 64 rows each. It
+//   walks K as (tap mf, 32-wide chunk of X). A ring of 4 shared-memory
+//   stages, each filled by 16-byte cp.async gathers of the window rows
+//   (rows cross batch boundaries at any q; rows past B*q read zeros) and the
+//   two bulk copies of the B tiles, completes on an mbarrier per stage; a
+//   second mbarrier per stage frees it after the warpgroups' wgmmas are
+//   done. Loads run two blocks ahead.
+// - A goes from shared memory to registers, is split there, and feeds
+//   wgmma.mma_async m64nNk8 .tf32 from registers; B is read by descriptor.
+// - The wrapper picks the tile per call (128x128, else 64x64) so that each
+//   call launches at least one block per SM; where 64x64 tiles cannot, K is
+//   split over the blocks and a second kernel adds the partial sums in a
+//   fixed order (deterministic, no atomics).
 
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTileM = 64;     // rows (b, t) per block
-constexpr int kTileN = 64;     // output columns per block
-constexpr int kTileK = 16;     // contraction step (a chunk of X at one tap)
-constexpr int kThreads = 256;  // 16 x 16 threads, a 4x4 tile each
-constexpr int kPad = 4;        // row padding of the k-major window tile
+constexpr int kBK = 32;       // K per stage: one 128-byte row of f32
+constexpr int kStages = 4;    // shared-memory ring
+constexpr int kAhead = 2;     // blocks loaded ahead of the one computed
+constexpr int kAStride = 36;  // floats per A row in shared memory (32 + 4: no bank conflicts)
 
-__global__ void __launch_bounds__(kThreads)
-tap_dots_kernel(const float* __restrict__ xp, const float* __restrict__ wf,
-                float* __restrict__ y, int n_groups, int batch, int qp, int x_dim,
-                int y_dim, int kf, int s, int q) {
-  __shared__ __align__(16) float as[2][kTileK][kTileM + kPad];
-  __shared__ __align__(16) float bs[2][kTileK][kTileN];
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int tid = threadIdx.x;
-  const int tm = tid / 16;  // rows tm*4 .. tm*4+3 of the tile
-  const int tn = tid % 16;  // columns tn*4 .. tn*4+3
-  const int g = blockIdx.z;
-  const int m0 = blockIdx.x * kTileM;
-  const int n0 = blockIdx.y * kTileN;
-  const int m_total = batch * q;
+// Round to TF32 (10 mantissa bits), to nearest with ties away from zero; the
+// low 13 bits of the result are zero.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r & 0xffffe000u;
+}
 
-  // This thread's window load: row ar of the tile, taps' columns kq..kq+3.
-  const int ar = tid / 4, kq = (tid % 4) * 4;
-  const bool a_ok = m0 + ar < m_total;
-  const float* a_row = xp;
-  if (a_ok) {
-    const int b = (m0 + ar) / q, t = (m0 + ar) % q;
-    a_row = xp + (static_cast<size_t>(g) * batch + b) * qp * x_dim +
-            static_cast<size_t>(t) * x_dim + kq;
-  }
-  // Its weight load: row bk of the [16 x 64] tile, columns bn..bn+3.
-  const int bk = tid / 16, bn = (tid % 16) * 4;
-  const float* b_col =
-      wf + (static_cast<size_t>(g) * x_dim + bk) * y_dim + n0 + bn;
-  const size_t w_tap = static_cast<size_t>(n_groups) * x_dim * y_dim;
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
 
-  const int x_steps = x_dim / kTileK;
-  const int n_steps = kf * x_steps;
-  float4 av, bv;
-  auto fetch = [&](int step) {
-    const int mf = step / x_steps, x0 = (step % x_steps) * kTileK;
-    av = a_ok ? __ldg(reinterpret_cast<const float4*>(
-                    a_row + static_cast<size_t>(mf) * s * x_dim + x0))
-              : make_float4(0.f, 0.f, 0.f, 0.f);
-    bv = __ldg(reinterpret_cast<const float4*>(
-        b_col + mf * w_tap + static_cast<size_t>(x0) * y_dim));
-  };
-  auto stage = [&](int buf) {
-    as[buf][kq + 0][ar] = av.x;
-    as[buf][kq + 1][ar] = av.y;
-    as[buf][kq + 2][ar] = av.z;
-    as[buf][kq + 3][ar] = av.w;
-    *reinterpret_cast<float4*>(&bs[buf][bk][bn]) = bv;
-  };
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
 
-  float acc[4][4];
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// 16 bytes global -> shared; src_bytes = 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// Arrive on `bar` once this thread's earlier cp.asyncs have landed.
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(bar) : "memory");
+}
+
+// Contiguous bulk copy global -> shared by the TMA unit, completing on `bar`.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major tile of 128-byte rows in the 128-byte
+// swizzle: 8-row groups 1024 bytes apart (SBO); LBO is unused there.
+__device__ __forceinline__ uint64_t b128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Orders the compiler's uses of registers that an in-flight wgmma reads or
+// writes after the wait.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void keep_regs(const uint32_t (&a)[4][4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j) asm volatile("" ::"r"(a[i][j]));
+}
 
-  fetch(0);
-  stage(0);
-  __syncthreads();
-  for (int step = 0; step < n_steps; ++step) {
-    const int buf = step & 1;
-    if (step + 1 < n_steps) fetch(step + 1);
-#pragma unroll
-    for (int k = 0; k < kTileK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&as[buf][k][tm * 4]);
-      const float4 w = *reinterpret_cast<const float4*>(&bs[buf][k][tn * 4]);
-      const float a4[4] = {a.x, a.y, a.z, a.w};
-      const float w4[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a4[i], w4[j], acc[i][j]);
+// d[32] (+)= A[64x8] (registers) * B[8x64] (K-major, 128 B swizzled, in shared
+// memory at desc); scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k8(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// d[64] (+)= A[64x8] (registers) * B[8x128] (K-major, 128 B swizzled, in shared
+// memory at desc); scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n128k8(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[BN / 2], const uint32_t (&a)[4],
+                                           uint64_t desc, int scale_d) {
+  if constexpr (BN == 128) wgmma_m64n128k8(d, a, desc, scale_d);
+  else wgmma_m64n64k8(d, a, desc, scale_d);
+}
+
+struct TapArgs {
+  const float* xp;  // [g, batch, qp, kc]
+  const float* wk;  // [2, kf, g, kc/32, n, 32], rows swizzled (the prologue's output)
+  float* out;       // [splits, g, batch*q, n]
+  int g, batch, qp, kc, n, kf, s, q, kb_per_split, n_kb;
+};
+
+template <int NWG, int BN>
+constexpr int smem_bytes() {
+  return kStages * (2 * BN * kBK * 4 + NWG * 64 * kAStride * 4) + 2 * kStages * 8 + 1024;
+}
+
+template <int NWG, int BN>
+__global__ void __launch_bounds__(NWG * 128) tap_dots_tc_kernel(const TapArgs args) {
+  constexpr int kThreads = NWG * 128;
+  constexpr int kBM = NWG * 64;
+  constexpr int kBTile = BN * kBK * 4;        // bytes of one B tile (hi or lo)
+  constexpr int kAStage = kBM * kAStride * 4;  // bytes of one A tile
+  constexpr int kAChunks = kBM * 8 / kThreads;
+  constexpr int kAcc = BN / 2;                 // accumulator floats per thread
+
+  extern __shared__ unsigned char smem_raw[];
+  // 1024-byte aligned: the swizzle is a function of the shared address
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t b_base = smem_u32(smem);  // stage st: hi at +2*st*kBTile, lo after it
+  const uint32_t a_base = b_base + kStages * 2 * kBTile;
+  const float* a_smem = reinterpret_cast<const float*>(smem + kStages * 2 * kBTile);
+  const uint32_t full_bar = a_base + kStages * kAStage;  // kStages x 8 bytes
+  const uint32_t empty_bar = full_bar + kStages * 8;
+
+  const int tid = threadIdx.x;
+  const int m_total = args.batch * args.q;
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * BN;
+  const int gi = blockIdx.z % args.g, split = blockIdx.z / args.g;
+  const int kb_begin = split * args.kb_per_split;
+  const int nk = min(args.n_kb, kb_begin + args.kb_per_split) - kb_begin;
+  const int kc_blocks = args.kc / kBK;
+
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full_bar + 8 * st, kThreads + 1);  // every thread's cp.asyncs + the bulk copies
+      mbar_init(empty_bar + 8 * st, kThreads);
     }
-    // The other buffer was last read before the previous barrier.
-    if (step + 1 < n_steps) stage(buf ^ 1);
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // This thread's window rows: chunk (tid & 7) of rows (tid >> 3) + i*kThreads/8.
+  const float* a_src[kAChunks];
+  uint32_t a_bytes[kAChunks], a_dst[kAChunks];
+#pragma unroll
+  for (int i = 0; i < kAChunks; ++i) {
+    const int r = (tid >> 3) + i * (kThreads / 8), m = m0 + r;
+    a_bytes[i] = m < m_total ? 16 : 0;
+    a_src[i] = args.xp;
+    if (m < m_total) {
+      const int b = m / args.q, t = m % args.q;
+      a_src[i] = args.xp + (static_cast<size_t>(gi) * args.batch + b) * args.qp * args.kc +
+                 static_cast<size_t>(t) * args.kc + (tid & 7) * 4;
+    }
+    a_dst[i] = (r * kAStride + (tid & 7) * 4) * 4;
   }
 
-  // Row (b, t) of group g is row g*B*q + b*q + t of y [g, B, q, Y].
+  auto load = [&](int i, int st) {
+    const int kb = kb_begin + i;
+    const int mf = kb / kc_blocks, kx = kb % kc_blocks;
+    const size_t a_off = static_cast<size_t>(mf) * args.s * args.kc + kx * kBK;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + tm * 4 + i;
-    if (m >= m_total) continue;
-    float* dst = y + (static_cast<size_t>(g) * m_total + m) * y_dim + n0 + tn * 4;
-    *reinterpret_cast<float4*>(dst) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    for (int c = 0; c < kAChunks; ++c)
+      cp_async_16(a_base + st * kAStage + a_dst[c], a_bytes[c] ? a_src[c] + a_off : a_src[c],
+                  a_bytes[c]);
+    cp_async_arrive(full_bar + 8 * st);
+    if (tid == 0) {
+      mbar_arrive_expect_tx(full_bar + 8 * st, 2 * kBTile);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* src =
+            args.wk +
+            ((((static_cast<size_t>(h) * args.kf + mf) * args.g + gi) * kc_blocks + kx) * args.n +
+             n0) * kBK;
+        bulk_copy(b_base + (2 * st + h) * kBTile, src, kBTile, full_bar + 8 * st);
+      }
+    }
+  };
+
+  // A fragment of m64n*k8 .tf32: a[e] is row ar + 8*(e & 1), column ac + 4*(e >> 1).
+  const int ar = (tid / 128) * 64 + ((tid / 32) % 4) * 16 + (tid % 32) / 4;
+  const int ac = tid % 4;
+  float acc[kAcc], part[kAcc];
+#pragma unroll
+  for (int e = 0; e < kAcc; ++e) acc[e] = part[e] = 0.f;
+
+  for (int i = 0; i < min(kAhead, nk); ++i) load(i, i);
+  for (int i = 0; i < nk; ++i) {
+    const int st = i % kStages;
+    const int next = i + kAhead;
+    if (next < nk) {
+      const int sn = next % kStages;
+      if (next >= kStages) mbar_wait(empty_bar + 8 * sn, (next / kStages - 1) & 1);
+      load(next, sn);
+    }
+    mbar_wait(full_bar + 8 * st, (i / kStages) & 1);
+
+    uint32_t hi[4][4], lo[4][4];
+    const float* as = a_smem + st * (kAStage / 4);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float v = as[(ar + 8 * (e & 1)) * kAStride + kk * 8 + ac + 4 * (e >> 1)];
+        hi[kk][e] = tf32_rna(v);
+        lo[kk][e] = tf32_rna(v - __uint_as_float(hi[kk][e]));
+      }
+    const uint32_t b_hi = b_base + 2 * st * kBTile, b_lo = b_hi + kBTile;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // the small terms first, into a fresh accumulator
+      wgmma_tf32<BN>(part, lo[kk], b128_desc(b_hi + kk * 32), kk > 0);
+      wgmma_tf32<BN>(part, hi[kk], b128_desc(b_lo + kk * 32), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_tf32<BN>(part, hi[kk], b128_desc(b_hi + kk * 32), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(part);
+    keep_regs(hi);
+    keep_regs(lo);
+    mbar_arrive(empty_bar + 8 * st);
+#pragma unroll
+    for (int e = 0; e < kAcc; ++e) acc[e] += part[e];
   }
+
+  // Accumulator of m64nNk8: acc[4j + v] is row ar + 8*(v >> 1), column 8j + 2*ac + (v & 1).
+  float* out = args.out + (static_cast<size_t>(split) * args.g + gi) * m_total * args.n;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * ac;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + ar + 8 * h;
+      if (m < m_total)
+        *reinterpret_cast<float2*>(out + static_cast<size_t>(m) * args.n + col) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// y = sum over the K splits of partial, in order of the split.
+__global__ void sum_splits_kernel(const float4* __restrict__ partial, float4* __restrict__ y,
+                                  int splits, size_t n4) {
+  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= n4) return;
+  float4 s = partial[idx];
+  for (int z = 1; z < splits; ++z) {
+    const float4 p = partial[z * n4 + idx];
+    s.x += p.x;
+    s.y += p.y;
+    s.z += p.z;
+    s.w += p.w;
+  }
+  y[idx] = s;
+}
+
+// The weights as wgmma's B operand: B[n][k] of tap mf, group gi is
+// wf[mf, gi, k, n] (forward) or wf[kf-1-mf, gi, n, k] (flip_t, the dx form),
+// split into hi and lo and stored [2, kf, g, kc/32, n, 32] with the 16-byte
+// chunk c of row n at chunk c ^ (n % 8). One block per 32x32 tile.
+__global__ void split_weights_kernel(const float* __restrict__ wf, float* __restrict__ wk,
+                                     int kf, int g, int kc, int n, int flip_t) {
+  __shared__ float tile[32][33];  // [k][n]
+  const int n0 = blockIdx.x * 32, kx = blockIdx.y;
+  const int mf = blockIdx.z / g, gi = blockIdx.z % g;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  if (!flip_t) {
+    const float* src = wf + (static_cast<size_t>(mf) * g + gi) * kc * n;  // [kc, n]
+    for (int k = ty; k < 32; k += 8)
+      tile[k][tx] = src[static_cast<size_t>(kx * 32 + k) * n + n0 + tx];
+  } else {
+    const float* src = wf + (static_cast<size_t>(kf - 1 - mf) * g + gi) * n * kc;  // [n, kc]
+    for (int r = ty; r < 32; r += 8)
+      tile[tx][r] = src[static_cast<size_t>(n0 + r) * kc + kx * 32 + tx];
+  }
+  __syncthreads();
+  const int kc_blocks = kc / 32;
+  for (int r = ty; r < 32; r += 8) {
+    const int row = n0 + r;
+    const float v = tile[tx][r];
+    const uint32_t hi = tf32_rna(v);
+    const uint32_t lo = tf32_rna(v - __uint_as_float(hi));
+    const int col = (((tx >> 2) ^ (row & 7)) << 2) | (tx & 3);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const size_t blk = ((static_cast<size_t>(h) * kf + mf) * g + gi) * kc_blocks + kx;
+      wk[(blk * n + row) * 32 + col] = __uint_as_float(h ? lo : hi);
+    }
+  }
+}
+
+template <int NWG, int BN>
+cudaError_t launch_tc(const TapArgs& args, int splits, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<NWG, BN>();
+  cudaError_t err = cudaFuncSetAttribute(tap_dots_tc_kernel<NWG, BN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int m_total = args.batch * args.q;
+  const dim3 grid((m_total + NWG * 64 - 1) / (NWG * 64), args.n / BN, args.g * splits);
+  tap_dots_tc_kernel<NWG, BN><<<grid, NWG * 128, smem, stream>>>(args);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// C interface, loaded with ctypes. Returns a cudaError_t (0 = launched).
-// xp [g, batch, qp, x_dim], wf [kf, g, x_dim, y_dim] and y [g, batch, q, y_dim]
-// are contiguous, 16-byte aligned f32 on `device`; x_dim % 16 == 0,
-// y_dim % 64 == 0 and qp >= q + (kf - 1) * s.
-extern "C" int gouter_tap_dots(const float* xp, const float* wf, float* y,
-                               int n_groups, int batch, int qp, int x_dim,
-                               int y_dim, int kf, int s, int q, int device,
-                               cudaStream_t stream) {
+// C interface, loaded with ctypes. Each returns a cudaError_t (0 = launched).
+//
+// wf [kf, g, kc, n] (forward) or [kf, g, n, kc] (flip_t) -> wk
+// [2, kf, g, kc/32, n, 32]; kc % 32 == 0, n % 32 == 0.
+extern "C" int gouter_split_weights(const float* wf, float* wk, int kf, int g, int kc, int n,
+                                    int flip_t, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (n_groups <= 0 || batch <= 0 || q <= 0 || kf <= 0 || s <= 0 ||
-      x_dim % kTileK != 0 || y_dim % kTileN != 0 || qp < q + (kf - 1) * s ||
-      n_groups > 65535)
+  if (kf <= 0 || g <= 0 || kc % 32 != 0 || n % 32 != 0 || kc <= 0 || n <= 0 ||
+      kf * g > 65535)
     return cudaErrorInvalidValue;
-  const dim3 grid((batch * q + kTileM - 1) / kTileM, y_dim / kTileN, n_groups);
-  tap_dots_kernel<<<grid, kThreads, 0, stream>>>(xp, wf, y, n_groups, batch, qp,
-                                                 x_dim, y_dim, kf, s, q);
+  split_weights_kernel<<<dim3(n / 32, kc / 32, kf * g), dim3(32, 8), 0, stream>>>(
+      wf, wk, kf, g, kc, n, flip_t);
+  return cudaGetLastError();
+}
+
+// y [g, batch, q, n] from xp [g, batch, qp, kc] and wk (above), contiguous
+// and 16-byte aligned f32 on `device`, qp >= q + (kf - 1) * s. Tile
+// (nwg, bn) is (2, 128) or (1, 64); with splits > 1 the K blocks are split
+// over `splits` block rows into partial [splits, g, batch*q, n] and summed.
+extern "C" int gouter_tap_dots(const float* xp, const float* wk, float* partial, float* y,
+                               int g, int batch, int qp, int kc, int n, int kf, int s, int q,
+                               int nwg, int bn, int splits, int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const int n_kb = kf * (kc / kBK);
+  if (g <= 0 || batch <= 0 || q <= 0 || kf <= 0 || s <= 0 || kc % kBK != 0 || n % bn != 0 ||
+      qp < q + (kf - 1) * s || splits < 1 || splits > n_kb || g * splits > 65535 ||
+      (splits > 1 && partial == nullptr))
+    return cudaErrorInvalidValue;
+  const int kb_per_split = (n_kb + splits - 1) / splits;
+  if ((splits - 1) * kb_per_split >= n_kb) return cudaErrorInvalidValue;  // an empty split
+  TapArgs args{xp, wk, splits > 1 ? partial : y, g, batch, qp, kc, n, kf, s, q,
+               kb_per_split, n_kb};
+  if (nwg == 2 && bn == 128) err = launch_tc<2, 128>(args, splits, stream);
+  else if (nwg == 1 && bn == 64) err = launch_tc<1, 64>(args, splits, stream);
+  else return cudaErrorInvalidValue;
+  if (err != cudaSuccess || splits == 1) return err;
+  const size_t n4 = static_cast<size_t>(g) * batch * q * n / 4;
+  sum_splits_kernel<<<static_cast<unsigned>((n4 + 255) / 256), 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(partial), reinterpret_cast<float4*>(y), splits, n4);
   return cudaGetLastError();
 }

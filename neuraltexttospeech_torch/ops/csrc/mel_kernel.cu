@@ -1,209 +1,170 @@
-// Fused wav-frames -> log-mel kernel for Hopper (sm_90a).
+// Fused frames -> log-mel kernel for Hopper (sm_90a): one pass, FFT based.
 //
 // Replaces neuraltexttospeech_tpu/ops/mel_kernel.py::fused_frames_to_mel
 // (Pallas body _mel_kernel, pallas_call at :163). For windowed frames
 // F [N, n_fft] it computes
 //
-//   re = F @ Dr,  im = F @ Di                  (the rDFT as two products with
-//                                               constant cos/sin matrices)
-//   out = log(max((re^2 + im^2)^(p/2) @ M, 1e-5))
+//   out = log(max(|rfft(F)|^p @ M, 1e-5))        [N, n_mels]
 //
-// What bounds this formulation on the card: operations. A frame costs
-// 2*n_fft*n_bins*2 + 2*n_bins*n_mels FLOP against 4*n_fft bytes read, about
-// 1000 FLOP per byte at n_fft = 1024, far above the card's f32 balance
-// (67 TFLOP/s over 3.35 TB/s, about 20). The function itself needs far less:
-// an rFFT is about 2.5*n_fft*log2(n_fft) FLOP a frame and the mel basis is
-// sparse, so the least time for it is set by the bytes of the frames. The
-// DFT-as-matmul form is the TPU kernel's (the MXU has no FFT), kept here as
-// the first, simple port. The 1e-3 log-mel budget rules out TF32 and bf16
-// tensor cores, so every product is an f32 FMA.
+// The TPU kernel formed the rDFT as two dense products with cos/sin
+// matrices, because the MXU has no FFT; that is about 2*n_fft*(n_fft/2+1)*2
+// FLOP a frame. Here the rDFT is a real FFT, about 2.5*n_fft*log2(n_fft)
+// FLOP a frame, and the mel projection runs over the basis's nonzeros only.
 //
-// Design: a 2-D grid. Block (x, y) takes a tile of 32 frames and the y-th
-// chunk of 64 bins. re and im of [32 frames x 64 bins] accumulate in
-// registers (a 4x4 tile per thread) while frame and Dr/Di tiles stream
-// through shared memory 16 taps at a time. The chunk's |X|^p goes to shared
-// memory and is projected at once onto the mels, so no [frames, bins]
-// spectrum ever reaches device memory: each block writes only its
-// [32 x n_mels] partial mel sums. Splitting the bins over blocks keeps the
-// card full when a call has few frames (one 10 s wav is ~860 frames, 27
-// frame tiles for 132 SMs). A second small kernel adds the partial sums in
-// a fixed order (deterministic, no atomics) and takes the log.
-// The host pads Dr/Di to a multiple of 64 bins and M to a multiple of 16
-// mels with zeros, so the inner loops carry no masks.
+// What bounds it on the card: bytes. The frames (4*n_fft bytes a frame) are
+// read once and only [N, n_mels] is written; the FLOPs are a few per byte,
+// far below the H100's f32 balance (67 TFLOP/s over 3.35 TB/s, about 20).
+// So the design keeps everything between the load and the store on chip,
+// in one launch with no scratch buffer and no atomics:
+//
+// - A block takes kPoints / (n_fft/2) frames (4 at n_fft = 1024, so the
+//   GAN step's 512 frames give 128 blocks) and loads them coalesced, 16 B
+//   a thread, into shared memory. A real frame x of length n_fft, read as
+//   complex, is z[k] = x[2k] + i*x[2k+1], k < H = n_fft/2: the load needs
+//   no reordering.
+// - Z = FFT_H(z) by log2(H) radix-2 Stockham stages that ping-pong between
+//   two shared buffers (natural order in and out, no bit reversal).
+// - The split step gives the n_fft/2 + 1 bins of the real FFT:
+//   X[k] = (Z[k] + conj(Z[H-k]))/2 - i*W^k*(Z[k] - conj(Z[H-k]))/2, with
+//   W = exp(-2*pi*i/n_fft); then |X|^p from |X|^2 (p/2 == 1: no root,
+//   p/2 == 0.5: sqrt, else powf).
+// - Each mel is a short dot product over one contiguous range of bins
+//   (the basis in CSR form, built on the host from the dense filterbank),
+//   then log(max(., 1e-5)) and the store.
+//
+// Twiddles come from a table W^k, k <= n_fft/2, built on the host in float64
+// and cast to f32 (W_H^j = W^(2j)), so no sincos runs on the card.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTileF = 32;    // frames per block
-constexpr int kTileB = 64;    // bins per block (one chunk)
-constexpr int kTileK = 16;    // DFT taps per shared-memory stage
-constexpr int kThreads = 128; // 8 frame groups x 16 bin (or mel) groups
-constexpr int kPad = 4;       // row padding of the frame-indexed tiles
+constexpr int kThreads = 256;
+constexpr int kPoints = 2048;  // complex points a block holds (frames * H)
 
-// partial[y, f, m] = sum over the bins of chunk y of |X[f, b]|^p * M[b, m].
-template <int MPT>  // mels per thread; n_mels_p = 16 * MPT
+template <int LOG2_NFFT>
 __global__ void __launch_bounds__(kThreads)
-mel_partial_kernel(const float* __restrict__ frames, const float* __restrict__ dr,
-                   const float* __restrict__ di, const float* __restrict__ melw,
-                   float* __restrict__ partial, int n_frames, int n_fft,
-                   int n_bins_p, int n_mels, int power_mode, float half_p) {
-  __shared__ __align__(16) float fs[kTileK][kTileF + kPad];  // frames, tap-major
-  __shared__ __align__(16) float rs[kTileK][kTileB];         // Dr tile
-  __shared__ __align__(16) float is[kTileK][kTileB];         // Di tile
-  __shared__ __align__(16) float ps[kTileB][kTileF + kPad];  // |X|^p, bin-major
+logmel_fft_kernel(const float* __restrict__ frames, const float2* __restrict__ twiddle,
+                  const int* __restrict__ mel_lo, const int* __restrict__ mel_ptr,
+                  const float* __restrict__ mel_w, float* __restrict__ out,
+                  int n_frames, int n_mels, int power_mode, float half_p) {
+  constexpr int kN = 1 << LOG2_NFFT;  // n_fft
+  constexpr int kH = kN / 2;          // complex FFT length
+  constexpr int kLogH = LOG2_NFFT - 1;
+  constexpr int kFrames = kPoints / kH;
+  constexpr int kBins = kH + 1;
+  static_assert(kFrames * (kBins) <= 2 * kPoints, "power spectrum must fit");
+
+  __shared__ __align__(16) float2 buf[2][kPoints];
+  __shared__ float2 tw[kBins];  // W^k, k = 0..H
 
   const int tid = threadIdx.x;
-  const int fg = tid / 16;  // frames fg*4 .. fg*4+3 of the tile
-  const int bg = tid % 16;  // bins bg*4 .. bg*4+3 of the chunk; mels bg*MPT ..
-  const int f0 = blockIdx.x * kTileF;
-  const int b0 = blockIdx.y * kTileB;
-  const int n_mels_p = 16 * MPT;
+  const int f0 = blockIdx.x * kFrames;
+  const int nf = min(kFrames, n_frames - f0);
 
-  float re[4][4], im[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) re[i][j] = im[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < n_fft; k0 += kTileK) {
-    {  // 32 frames x 16 taps: one float4 per thread, stored tap-major
-      const int f = tid / 4, kq = (tid % 4) * 4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (f0 + f < n_frames)
-        v = *reinterpret_cast<const float4*>(
-            frames + static_cast<size_t>(f0 + f) * n_fft + k0 + kq);
-      fs[kq + 0][f] = v.x;
-      fs[kq + 1][f] = v.y;
-      fs[kq + 2][f] = v.z;
-      fs[kq + 3][f] = v.w;
-    }
-    for (int q = tid; q < kTileK * kTileB / 4; q += kThreads) {
-      const int k = q / (kTileB / 4), bq = (q % (kTileB / 4)) * 4;
-      const size_t off = static_cast<size_t>(k0 + k) * n_bins_p + b0 + bq;
-      *reinterpret_cast<float4*>(&rs[k][bq]) =
-          __ldg(reinterpret_cast<const float4*>(dr + off));
-      *reinterpret_cast<float4*>(&is[k][bq]) =
-          __ldg(reinterpret_cast<const float4*>(di + off));
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kTileK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&fs[k][fg * 4]);
-      const float4 r = *reinterpret_cast<const float4*>(&rs[k][bg * 4]);
-      const float4 s = *reinterpret_cast<const float4*>(&is[k][bg * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float rv[4] = {r.x, r.y, r.z, r.w};
-      const float sv[4] = {s.x, s.y, s.z, s.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          re[i][j] = fmaf(av[i], rv[j], re[i][j]);
-          im[i][j] = fmaf(av[i], sv[j], im[i][j]);
-        }
-    }
-    __syncthreads();
+  for (int k = tid; k < kBins; k += kThreads) tw[k] = __ldg(twiddle + k);
+  {  // the block's frames, 16 B a thread; frames past the end read zeros
+    const float4* src = reinterpret_cast<const float4*>(frames + static_cast<size_t>(f0) * kN);
+    float4* dst = reinterpret_cast<float4*>(buf[0]);
+    const int valid = nf * (kN / 4);
+    for (int q = tid; q < kPoints / 2; q += kThreads)
+      dst[q] = q < valid ? __ldg(src + q) : make_float4(0.f, 0.f, 0.f, 0.f);
   }
-
-  // |X|^p from |X|^2 (p/2 == 1: no root; p/2 == 0.5: sqrt; else powf).
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float m2 = fmaf(re[i][j], re[i][j], im[i][j] * im[i][j]);
-      float pw;
-      if (power_mode == 1) pw = m2;
-      else if (power_mode == 2) pw = sqrtf(m2);
-      else pw = powf(m2, half_p);
-      ps[bg * 4 + j][fg * 4 + i] = pw;
-    }
   __syncthreads();
 
-  float acc[4][MPT];
+  // Stockham radix-2: stage l reads x[i], x[i + H/2] and writes
+  // y[2i - q] = a + b, y[2i - q + s] = (a - b) * W_H^(i - q), s = 2^l, q = i mod s.
+  int src = 0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < MPT; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int b = 0; b < kTileB; ++b) {
-    const float4 a = *reinterpret_cast<const float4*>(&ps[b][fg * 4]);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float* w = melw + static_cast<size_t>(b0 + b) * n_mels_p + bg * MPT;
-    float wv[MPT];
-#pragma unroll
-    for (int j = 0; j < MPT; ++j) wv[j] = __ldg(w + j);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < MPT; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
-  }
-
-  float* dst = partial + static_cast<size_t>(blockIdx.y) * n_frames * n_mels;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int f = f0 + fg * 4 + i;
-    if (f >= n_frames) continue;
-#pragma unroll
-    for (int j = 0; j < MPT; ++j) {
-      const int m = bg * MPT + j;
-      if (m < n_mels) dst[static_cast<size_t>(f) * n_mels + m] = acc[i][j];
+  for (int l = 0; l < kLogH; ++l) {
+    const int s = 1 << l;
+    const float2* x = buf[src];
+    float2* y = buf[src ^ 1];
+    for (int idx = tid; idx < kPoints / 2; idx += kThreads) {
+      const int f = idx / (kH / 2), i = idx % (kH / 2);
+      const float2* xf = x + f * kH;
+      float2* yf = y + f * kH;
+      const float2 a = xf[i], b = xf[i + kH / 2];
+      const int q = i & (s - 1);
+      const float2 w = tw[2 * (i - q)];  // W_H^(i-q) = W^(2(i-q))
+      const float dr = a.x - b.x, di = a.y - b.y;
+      yf[2 * i - q] = make_float2(a.x + b.x, a.y + b.y);
+      yf[2 * i - q + s] = make_float2(dr * w.x - di * w.y, dr * w.y + di * w.x);
     }
+    src ^= 1;
+    __syncthreads();
+  }
+
+  // Split step and |X|^p into the other buffer, [frames][H + 1] floats.
+  const float2* z = buf[src];
+  float* pw = reinterpret_cast<float*>(buf[src ^ 1]);
+  for (int idx = tid; idx < kFrames * kBins; idx += kThreads) {
+    const int f = idx / kBins, k = idx % kBins;
+    const float2 zk = z[f * kH + (k & (kH - 1))];
+    const float2 zc = z[f * kH + ((kH - k) & (kH - 1))];
+    // E = (Z[k] + conj Z[H-k]) / 2, O = (Z[k] - conj Z[H-k]) / (2i)
+    const float er = 0.5f * (zk.x + zc.x), ei = 0.5f * (zk.y - zc.y);
+    const float orr = 0.5f * (zk.y + zc.y), oi = -0.5f * (zk.x - zc.x);
+    const float2 w = tw[k];
+    const float xr = er + (orr * w.x - oi * w.y);
+    const float xi = ei + (orr * w.y + oi * w.x);
+    const float m2 = fmaf(xr, xr, xi * xi);
+    float p;
+    if (power_mode == 1) p = m2;
+    else if (power_mode == 2) p = sqrtf(m2);
+    else p = powf(m2, half_p);
+    pw[idx] = p;
+  }
+  __syncthreads();
+
+  // Mel projection over each mel's bin range, log, store.
+  for (int idx = tid; idx < nf * n_mels; idx += kThreads) {
+    const int f = idx / n_mels, m = idx % n_mels;
+    const float* p = pw + f * kBins + __ldg(mel_lo + m);
+    const int w0 = __ldg(mel_ptr + m), w1 = __ldg(mel_ptr + m + 1);
+    float acc = 0.f;
+    for (int j = w0; j < w1; ++j) acc = fmaf(p[j - w0], __ldg(mel_w + j), acc);
+    out[static_cast<size_t>(f0 + f) * n_mels + m] = logf(fmaxf(acc, 1e-5f));
   }
 }
 
-// out[f, m] = log(max(sum_y partial[y, f, m], 1e-5)), summed in order of y.
-__global__ void mel_log_kernel(const float* __restrict__ partial,
-                               float* __restrict__ out, int n_chunks, int n) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  float s = 0.f;
-  for (int y = 0; y < n_chunks; ++y) s += partial[static_cast<size_t>(y) * n + idx];
-  out[idx] = logf(fmaxf(s, 1e-5f));
-}
-
-template <int MPT>
-cudaError_t launch(const float* frames, const float* dr, const float* di,
-                   const float* melw, float* partial, float* out, int n_frames,
-                   int n_fft, int n_bins_p, int n_mels, int power_mode,
-                   float half_p, cudaStream_t stream) {
-  const int n_chunks = n_bins_p / kTileB;
-  const dim3 grid((n_frames + kTileF - 1) / kTileF, n_chunks);
-  mel_partial_kernel<MPT><<<grid, kThreads, 0, stream>>>(
-      frames, dr, di, melw, partial, n_frames, n_fft, n_bins_p, n_mels,
-      power_mode, half_p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int n = n_frames * n_mels;
-  mel_log_kernel<<<(n + 255) / 256, 256, 0, stream>>>(partial, out, n_chunks, n);
+template <int LOG2_NFFT>
+cudaError_t launch(const float* frames, const float2* twiddle, const int* mel_lo,
+                   const int* mel_ptr, const float* mel_w, float* out, int n_frames,
+                   int n_mels, int power_mode, float half_p, cudaStream_t stream) {
+  constexpr int kFrames = kPoints / (1 << (LOG2_NFFT - 1));
+  const int blocks = (n_frames + kFrames - 1) / kFrames;
+  logmel_fft_kernel<LOG2_NFFT><<<blocks, kThreads, 0, stream>>>(
+      frames, twiddle, mel_lo, mel_ptr, mel_w, out, n_frames, n_mels, power_mode, half_p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes. Returns a cudaError_t (0 = launched).
-// frames [n_frames, n_fft], dr/di [n_fft, n_bins_p], melw [n_bins_p, n_mels_p],
-// partial [n_bins_p / 64, n_frames, n_mels] (scratch) and out [n_frames, n_mels]
-// are contiguous f32 on `device`; frames 16-byte aligned.
+// frames [n_frames, n_fft] (16-byte aligned), twiddle [n_fft/2 + 1] complex,
+// mel_lo [n_mels], mel_ptr [n_mels + 1], mel_w [mel_ptr[n_mels]] and
+// out [n_frames, n_mels] are contiguous on `device`; n_fft is 64, 256 or 1024.
+// Mel m is sum_j mel_w[mel_ptr[m] + j] * |X[mel_lo[m] + j]|^p.
 // power_mode: 1 = |X|^2, 2 = |X|, 0 = (|X|^2)^half_p.
-extern "C" int logmel_frames(const float* frames, const float* dr,
-                             const float* di, const float* melw, float* partial,
-                             float* out, int n_frames, int n_fft, int n_bins_p,
-                             int n_mels, int n_mels_p, int power_mode,
+extern "C" int logmel_frames(const float* frames, const float* twiddle, const int* mel_lo,
+                             const int* mel_ptr, const float* mel_w, float* out,
+                             int n_frames, int n_fft, int n_mels, int power_mode,
                              float half_p, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (n_frames <= 0 || n_fft % kTileK != 0 || n_bins_p % kTileB != 0 ||
-      n_mels_p % 16 != 0 || n_mels > n_mels_p)
-    return cudaErrorInvalidValue;
-  switch (n_mels_p / 16) {
-#define LOGMEL_CASE(M)                                                         \
-  case M:                                                                      \
-    return launch<M>(frames, dr, di, melw, partial, out, n_frames, n_fft,      \
-                     n_bins_p, n_mels, power_mode, half_p, stream);
-    LOGMEL_CASE(1)  // up to 16 mels (small test configs)
-    LOGMEL_CASE(5)  // 65..80 mels (every model config)
-#undef LOGMEL_CASE
+  if (n_frames <= 0 || n_mels <= 0) return cudaErrorInvalidValue;
+  const float2* tw = reinterpret_cast<const float2*>(twiddle);
+  switch (n_fft) {
+    case 64:
+      return launch<6>(frames, tw, mel_lo, mel_ptr, mel_w, out, n_frames, n_mels,
+                       power_mode, half_p, stream);
+    case 256:
+      return launch<8>(frames, tw, mel_lo, mel_ptr, mel_w, out, n_frames, n_mels,
+                       power_mode, half_p, stream);
+    case 1024:
+      return launch<10>(frames, tw, mel_lo, mel_ptr, mel_w, out, n_frames, n_mels,
+                        power_mode, half_p, stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -6,13 +6,19 @@ grouped, strided conv (``nn/fastconv.py``) computes
 
     y[g, b, t, :] = sum_mf xp[g, b, mf*s + t, :] @ wf[mf, g, :, :]
 
-for ``t < q``, with xp ``[g, B, Qp, X]`` padded and wf ``[kf, g, X, Y]``.
-``csrc/gouter_kernel.cu`` computes it in one pass on the card (its design and
-bound are in that file). :func:`gouter_tap_dots_reference` is the per-tap
-``torch.matmul`` loop of ``fastconv.py:62-67``; :func:`gouter_tap_dots_kernel`
-takes it only for a CPU tensor. For a CUDA tensor it launches the kernel or
-raises: the kernel takes every shape the v1 MSD produces (X and Y of 128, 256
-or 512, g of 4 or 16, kf up to 21, any q), and nothing else.
+for ``t < q``, with xp ``[g, B, Qp, X]`` padded and wf ``[kf, g, X, Y]``; with
+``flip_t`` the weights enter flipped over the taps and transposed
+(``wf[kf-1-mf, g].T``), the form of the backward's dx.
+``csrc/gouter_kernel.cu`` computes it on the tensor cores, f32-accurate by
+3xTF32 (its design and bound are in that file): a prologue kernel writes the
+weights K-major, split into TF32 hi and lo parts and swizzled
+(:func:`split_weights`; twin :func:`split_weights_reference`), then the main
+kernel runs at the tile :func:`plan_tiles` picks. :func:`gouter_tap_dots_reference`
+is the per-tap ``torch.matmul`` loop of ``fastconv.py:62-67``;
+:func:`gouter_tap_dots_kernel` takes it only for a CPU tensor. For a CUDA
+tensor it launches the kernels or raises: they take every shape the v1 MSD
+produces (X and Y of 128, 256 or 512, g of 4 or 16, kf up to 21, any q), and
+nothing else.
 """
 
 from __future__ import annotations
@@ -24,18 +30,24 @@ import torch
 
 from . import _build
 
-__all__ = ["gouter_tap_dots_kernel", "gouter_tap_dots_reference", "SOURCE"]
+__all__ = ["gouter_tap_dots_kernel", "gouter_tap_dots_reference", "split_weights",
+           "split_weights_reference", "plan_tiles", "tf32_round", "SOURCE"]
 
 SOURCE = "gouter_kernel.cu"
 _WIDTHS = (128, 256, 512)  # X and Y the kernel takes
 _GROUPS = (4, 16)
 _MAX_TAPS = 21
+_K_BLOCK = 32  # K per pipeline stage: one 128-byte row
+_TILES = ((2, 128), (1, 64))  # (warpgroups of 64 rows, columns): 128x128, then 64x64
 
 
-def gouter_tap_dots_reference(xp: torch.Tensor, wf: torch.Tensor, s: int,
-                              q: int) -> torch.Tensor:
-    """Plain twin: ``sum_mf xp[:, :, mf*s : mf*s + q] @ wf[mf]`` as one
-    group-batched ``torch.matmul`` per tap. [g, B, q, Y]."""
+def gouter_tap_dots_reference(xp: torch.Tensor, wf: torch.Tensor, s: int, q: int,
+                              flip_t: bool = False) -> torch.Tensor:
+    """Plain twin: ``sum_mf xp[:, :, mf*s : mf*s + q] @ w[mf]`` as one
+    group-batched ``torch.matmul`` per tap, with ``w = wf`` or, for
+    ``flip_t``, ``flip(wf, taps).transpose(-1, -2)``. [g, B, q, Y]."""
+    if flip_t:
+        wf = torch.flip(wf, (0,)).transpose(-1, -2)
     y = None
     for mf in range(wf.shape[0]):
         t = torch.matmul(xp[:, :, mf * s: mf * s + q], wf[mf].unsqueeze(1))
@@ -43,15 +55,88 @@ def gouter_tap_dots_reference(xp: torch.Tensor, wf: torch.Tensor, s: int,
     return y
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, low 13 bits cleared: what ``cvt.rna.tf32.f32`` gives."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _swizzle_rows(w: torch.Tensor) -> torch.Tensor:
+    """[..., n, 32] -> the same with 16-byte chunk c of row n at c ^ (n % 8),
+    the 128-byte swizzle wgmma reads (its own inverse)."""
+    n = w.shape[-2]
+    perm = torch.arange(8)[None, :] ^ (torch.arange(n) % 8)[:, None]  # [n, 8]
+    chunks = w.reshape(*w.shape[:-1], 8, 4)
+    index = perm.to(w.device)[..., None].expand(chunks.shape)
+    return torch.gather(chunks, -2, index).reshape(w.shape)
+
+
+def split_weights_reference(wf: torch.Tensor, flip_t: bool = False) -> torch.Tensor:
+    """Plain twin of the prologue kernel: the B operand ``b[mf, g, n, k]``
+    (``wf[mf, g, k, n]``, or ``wf[kf-1-mf, g, n, k]`` for ``flip_t``) split
+    into ``hi = tf32(b)`` and ``lo = tf32(b - hi)`` and laid out
+    ``[2, kf, g, K/32, N, 32]`` with swizzled rows."""
+    b = (torch.flip(wf, (0,)) if flip_t else wf.transpose(-1, -2)).float()
+    hi = tf32_round(b)
+    w = torch.stack([hi, tf32_round(b - hi)])  # [2, kf, g, n, k]
+    two, kf, g, n, k = w.shape
+    w = w.reshape(two, kf, g, n, k // _K_BLOCK, _K_BLOCK).transpose(3, 4)
+    return _swizzle_rows(w.contiguous())
+
+
 @functools.lru_cache(maxsize=1)
-def _launcher():
-    fn = _build.load(SOURCE).gouter_tap_dots
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = _build.load(SOURCE)
+    lib.gouter_split_weights.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+                                         + [ctypes.c_void_p])
+    lib.gouter_tap_dots.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+    for fn in (lib.gouter_split_weights, lib.gouter_tap_dots):
+        fn.restype = ctypes.c_int
+    return lib
 
 
-def _check(xp: torch.Tensor, wf: torch.Tensor, s: int, q: int):
+@functools.lru_cache(maxsize=8)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def plan_tiles(g: int, m: int, n: int, n_kblocks: int, sms: int = 132):
+    """The main kernel's launch for a call of M = B*q rows, N columns and
+    ``n_kblocks`` K blocks of 32 per group: ``(warpgroups, tile columns,
+    splits)``. The first tile of :data:`_TILES` that gives at least one block
+    per SM; else 64x64 tiles with K split over enough blocks, each split a
+    contiguous run of K blocks (no split is empty)."""
+    for nwg, bn in _TILES:
+        blocks = -(-m // (64 * nwg)) * (n // bn) * g
+        if blocks >= sms:
+            return nwg, bn, 1
+    splits = min(n_kblocks, -(-sms // blocks))
+    per = -(-n_kblocks // splits)
+    return nwg, bn, -(-n_kblocks // per)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def split_weights(wf: torch.Tensor, flip_t: bool = False) -> torch.Tensor:
+    """The prologue: :func:`split_weights_reference` by the kernel on a CUDA
+    tensor (contiguous float32 ``wf``), by the twin on a CPU tensor."""
+    if not wf.is_cuda:
+        return split_weights_reference(wf, flip_t)
+    kf, g, x_dim, y_dim = wf.shape
+    n, kc = (x_dim, y_dim) if flip_t else (y_dim, x_dim)
+    wk = torch.empty((2, kf, g, kc // _K_BLOCK, n, _K_BLOCK), dtype=torch.float32,
+                     device=wf.device)
+    err = _lib().gouter_split_weights(wf.data_ptr(), wk.data_ptr(), kf, g, kc, n, int(flip_t),
+                                      wf.device.index, _stream(wf))
+    if err != 0:
+        raise RuntimeError(f"weight-split kernel launch failed: CUDA error {err}")
+    return wk
+
+
+def _check(xp: torch.Tensor, wf: torch.Tensor, s: int, q: int, flip_t: bool = False):
     if xp.dtype != torch.float32 or wf.dtype != torch.float32:
         raise ValueError(f"expected float32, got {xp.dtype} and {wf.dtype}")
     if xp.ndim != 4 or wf.ndim != 4 or wf.device != xp.device:
@@ -59,6 +144,8 @@ def _check(xp: torch.Tensor, wf: torch.Tensor, s: int, q: int):
                          f"device, got {tuple(xp.shape)} and {tuple(wf.shape)}")
     g, _, qp, x_dim = xp.shape
     kf, g2, x2, y_dim = wf.shape
+    if flip_t:
+        x2, y_dim = y_dim, x2
     if g2 != g or x2 != x_dim:
         raise ValueError(f"xp {tuple(xp.shape)} and wf {tuple(wf.shape)} disagree")
     if x_dim not in _WIDTHS or y_dim not in _WIDTHS or g not in _GROUPS:
@@ -72,26 +159,33 @@ def _check(xp: torch.Tensor, wf: torch.Tensor, s: int, q: int):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def gouter_tap_dots_kernel(xp: torch.Tensor, wf: torch.Tensor, s: int,
-                           q: int) -> torch.Tensor:
-    """``y[g, b, t, :] = sum_mf xp[g, b, mf*s + t, :] @ wf[mf, g]`` for
-    ``t < q``: [g, B, q, Y].
+def gouter_tap_dots_kernel(xp: torch.Tensor, wf: torch.Tensor, s: int, q: int,
+                           flip_t: bool = False) -> torch.Tensor:
+    """``y[g, b, t, :] = sum_mf xp[g, b, mf*s + t, :] @ w[mf, g]`` for
+    ``t < q``, ``w = wf`` or (``flip_t``) ``flip(wf, taps).transpose(-1, -2)``:
+    [g, B, q, N].
 
-    A CUDA tensor goes through the kernel, which raises on a shape or layout
-    it does not take; a CPU tensor goes through
+    A CUDA tensor goes through the kernels, which raise on a shape or layout
+    they do not take; a CPU tensor goes through
     :func:`gouter_tap_dots_reference`. ``gouter_tap_dots_kernel.launches``
-    counts the kernel's launches."""
+    counts the calls that launched the kernels."""
     if not xp.is_cuda:
-        return gouter_tap_dots_reference(xp, wf, s, q)
-    _check(xp, wf, s, q)
-    g, batch, qp, x_dim = xp.shape
-    kf, _, _, y_dim = wf.shape
-    y = torch.empty((g, batch, q, y_dim), dtype=torch.float32, device=xp.device)
+        return gouter_tap_dots_reference(xp, wf, s, q, flip_t)
+    _check(xp, wf, s, q, flip_t)
+    g, batch, qp, kc = xp.shape
+    kf = wf.shape[0]
+    n = wf.shape[2] if flip_t else wf.shape[3]
+    y = torch.empty((g, batch, q, n), dtype=torch.float32, device=xp.device)
     if batch == 0:
         return y
-    stream = torch.cuda.current_stream(xp.device).cuda_stream
-    err = _launcher()(xp.data_ptr(), wf.data_ptr(), y.data_ptr(), g, batch, qp,
-                      x_dim, y_dim, kf, s, q, xp.device.index, stream)
+    wk = split_weights(wf, flip_t)
+    nwg, bn, splits = plan_tiles(g, batch * q, n, kf * kc // _K_BLOCK, _sm_count(xp.device))
+    partial = (torch.empty((splits, g, batch * q, n), dtype=torch.float32, device=xp.device)
+               if splits > 1 else None)
+    err = _lib().gouter_tap_dots(xp.data_ptr(), wk.data_ptr(),
+                                 None if partial is None else partial.data_ptr(), y.data_ptr(),
+                                 g, batch, qp, kc, n, kf, s, q, nwg, bn, splits,
+                                 xp.device.index, _stream(xp))
     if err != 0:
         raise RuntimeError(f"tap-window kernel launch failed: CUDA error {err}")
     gouter_tap_dots_kernel.launches += 1

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from neuraltexttospeech_torch.audio.stft import STFTConfig, windowed_frames
-from neuraltexttospeech_torch.ops import mel_kernel
+from neuraltexttospeech_torch.ops import gouter_kernel, mel_kernel
 
 CONFIGS = {
     "default": dict(),
@@ -34,23 +34,71 @@ def _torch_threads():
 @pytest.mark.parametrize("n_fft", [64, 1024])
 def test_dft_constants_give_the_rfft(n_fft):
     x = np.random.default_rng(0).standard_normal((5, n_fft))
-    dr, di = mel_kernel._dft_constants(n_fft, n_fft // 2 + 1)
+    dr, di = mel_kernel._dft_constants(n_fft)
     spec = np.fft.rfft(x, axis=-1)
     np.testing.assert_allclose(x @ dr, spec.real, atol=1e-3)
     np.testing.assert_allclose(x @ di, spec.imag, atol=1e-3)
 
 
+FFT_LENGTHS = [64, 256, 1024]
+
+
+@pytest.mark.parametrize("n_fft", FFT_LENGTHS)
 @pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_device_constants_are_padded_with_zeros(name):
-    cfg = STFTConfig(**CONFIGS[name])
-    dr, di, basis = mel_kernel._device_constants(cfg, torch.device("cpu"))
-    n_bins = cfg.filter_length // 2 + 1
-    assert dr.shape == di.shape == (cfg.filter_length, dr.shape[1])
-    assert dr.shape[1] % 64 == 0 and basis.shape[1] % 16 == 0
-    assert basis.shape[0] == dr.shape[1]
-    assert not dr[:, n_bins:].any() and not di[:, n_bins:].any()
-    assert not basis[n_bins:].any() and not basis[:, cfg.n_mel_channels:].any()
-    np.testing.assert_array_equal(basis[:n_bins, :cfg.n_mel_channels].numpy(), cfg.mel_basis())
+def test_csr_mel_basis_reproduces_the_filterbank(name, n_fft):
+    """The kernel's sparse basis, expanded, is the dense filterbank exactly;
+    each mel's range starts and ends on a nonzero (or is empty)."""
+    cfg = STFTConfig(**dict(CONFIGS[name], filter_length=n_fft, frame_length=n_fft))
+    dense = cfg.mel_basis()
+    lo, ptr, w = mel_kernel._csr_mel_basis(dense)
+    assert lo.dtype == ptr.dtype == np.int32 and w.dtype == np.float32
+    assert ptr[0] == 0 and ptr[-1] == w.size == np.count_nonzero(dense)
+    rebuilt = np.zeros_like(dense)
+    for m in range(cfg.n_mel_channels):
+        rebuilt[lo[m]:lo[m] + ptr[m + 1] - ptr[m], m] = w[ptr[m]:ptr[m + 1]]
+        if ptr[m + 1] > ptr[m]:
+            assert w[ptr[m]] != 0 and w[ptr[m + 1] - 1] != 0
+    np.testing.assert_array_equal(rebuilt, dense)
+
+
+@pytest.mark.parametrize("n_fft", FFT_LENGTHS)
+def test_twiddles_match_the_exponential(n_fft):
+    tw = mel_kernel._twiddles(n_fft)
+    k = np.arange(n_fft // 2 + 1)
+    want = np.exp(-2j * np.pi * k / n_fft)
+    assert tw.dtype == np.float32 and tw.shape == (n_fft // 2 + 1, 2)
+    np.testing.assert_allclose(tw[:, 0], want.real, rtol=0, atol=1e-7)
+    np.testing.assert_allclose(tw[:, 1], want.imag, rtol=0, atol=1e-7)
+
+
+def _kernel_fft_steps(frames, n_fft):
+    """The kernel's index arithmetic in numpy: the frame read as complex,
+    radix-2 Stockham stages with the f32 table, then the split step."""
+    h = n_fft // 2
+    tw = mel_kernel._twiddles(n_fft)
+    w = tw[:, 0] + 1j * tw[:, 1]
+    z = frames[:, 0::2] + 1j * frames[:, 1::2]
+    s = 1
+    while s < h:
+        i = np.arange(h // 2)
+        q = i & (s - 1)
+        a, b = z[:, i], z[:, i + h // 2]
+        y = np.empty_like(z)
+        y[:, 2 * i - q] = a + b
+        y[:, 2 * i - q + s] = (a - b) * w[2 * (i - q)]
+        z, s = y, 2 * s
+    k = np.arange(h + 1)
+    zk, zc = z[:, k & (h - 1)], np.conj(z[:, (h - k) & (h - 1)])
+    return (zk + zc) / 2 + w[k] * (zk - zc) / 2j
+
+
+@pytest.mark.parametrize("n_fft", FFT_LENGTHS)
+def test_kernel_fft_steps_give_the_rfft(n_fft):
+    """The Stockham stages and split step as the kernel indexes them give
+    the real FFT (1e-5 of the largest bin: the f32 twiddles' rounding)."""
+    x = np.random.default_rng(n_fft).standard_normal((3, n_fft))
+    got, want = _kernel_fft_steps(x, n_fft), np.fft.rfft(x, axis=-1)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
 
 
 @pytest.fixture
@@ -60,14 +108,19 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# n_fft -> mel channels, as the configs that use each length have them
+MELS = {64: 8, 256: 16, 1024: 80}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", sorted(CONFIGS))
+@pytest.mark.parametrize("n_fft", FFT_LENGTHS)
 @pytest.mark.parametrize("power", [0.5, 1.0, 2.0])
-def test_cuda_kernel_matches_plain_twin(cuda_device, name, power):
+def test_cuda_kernel_matches_plain_twin(cuda_device, n_fft, power):
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = STFTConfig(**CONFIGS[name], magnitude_power=power)
+    cfg = STFTConfig(filter_length=n_fft, frame_length=n_fft, frame_step=n_fft // 4,
+                     n_mel_channels=MELS[n_fft], magnitude_power=power)
     rng = np.random.default_rng(4)
-    x = torch.as_tensor((rng.standard_normal((3, 30000)) * 0.2).astype(np.float32),
+    x = torch.as_tensor((rng.standard_normal((3, 200 * n_fft)) * 0.2).astype(np.float32),
                         device=cuda_device)
     frames = windowed_frames(x, cfg.frame_length, cfg.frame_step,
                              cfg.filter_length).reshape(-1, cfg.filter_length).contiguous()
@@ -75,8 +128,8 @@ def test_cuda_kernel_matches_plain_twin(cuda_device, name, power):
     got = mel_kernel.fused_frames_to_mel(frames, cfg)
     assert mel_kernel.fused_frames_to_mel.launches == before + 1
     torch.testing.assert_close(got, mel_kernel.frames_to_mel_reference(frames, cfg), **TOL)
-    # a ragged frame count (not a multiple of the 32-frame tile) and one frame
-    for n in (33, 1):
+    # ragged frame counts: not a multiple of a block's frames, and one frame
+    for n in (513, 33, 1):
         torch.testing.assert_close(mel_kernel.fused_frames_to_mel(frames[:n].contiguous(), cfg),
                                    mel_kernel.frames_to_mel_reference(frames[:n], cfg), **TOL)
 
@@ -105,9 +158,15 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
         mel_kernel.fused_frames_to_mel(frames[:, :512], cfg)
     with pytest.raises(ValueError):
         mel_kernel.fused_frames_to_mel(torch.zeros(1024, 8, device=cuda_device).t(), cfg)
-    with pytest.raises(ValueError):  # no instantiation for 40 mels
-        mel_kernel.fused_frames_to_mel(frames, STFTConfig(n_mel_channels=40))
+    with pytest.raises(ValueError):  # no instantiation for n_fft 512
+        mel_kernel.fused_frames_to_mel(frames[:, :512].contiguous(),
+                                       STFTConfig(filter_length=512, frame_length=512))
     assert mel_kernel.fused_frames_to_mel(frames[:0], cfg).shape == (0, 80)
+    # the sparse basis takes any mel count
+    cfg40 = STFTConfig(n_mel_channels=40)
+    noise = torch.randn(8, 1024, device=cuda_device) * 0.2
+    torch.testing.assert_close(mel_kernel.fused_frames_to_mel(noise, cfg40),
+                               mel_kernel.frames_to_mel_reference(noise, cfg40), **TOL)
 
 
 # ------------------------------------------------------- B1's backward, B2
@@ -146,24 +205,143 @@ B2_SHAPES = [
     (16, 16, 36, 128, 128, 21, 1, 16),
     (4, 3, 29, 128, 512, 5, 3, 17),
 ]
+# every dx call of a v1 GAN step (batch 16 x 8192), whose q = Qp of the
+# forward is never a multiple of 64: xp is the padded dy [g, B, Qp', Y] and
+# the weights enter flipped and transposed (flip_t), so X and Y swap roles
+B2_DX_SHAPES = [
+    (4, 16, 1036, 128, 256, 7, 1, 1030), (16, 16, 264, 128, 128, 5, 1, 260),
+    (16, 16, 68, 256, 512, 3, 1, 66), (16, 16, 76, 128, 256, 7, 1, 70),
+    (16, 16, 104, 128, 128, 21, 1, 84), (4, 16, 524, 128, 256, 7, 1, 518),
+    (16, 16, 136, 128, 128, 5, 1, 132), (16, 16, 36, 256, 512, 3, 1, 34),
+    (16, 16, 44, 128, 256, 7, 1, 38), (16, 16, 72, 128, 128, 21, 1, 52),
+    (4, 16, 268, 128, 256, 7, 1, 262), (16, 16, 72, 128, 128, 5, 1, 68),
+    (16, 16, 20, 256, 512, 3, 1, 18), (16, 16, 28, 128, 256, 7, 1, 22),
+    (16, 16, 56, 128, 128, 21, 1, 36),
+]
+
+
+def _tap_inputs(shape, flip_t, device, seed=0):
+    g, b, qp, x_dim, y_dim, kf, s, q = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    xp = torch.randn(g, b, qp, x_dim, device=device, generator=gen)
+    w_shape = (kf, g, y_dim, x_dim) if flip_t else (kf, g, x_dim, y_dim)
+    wf = torch.randn(*w_shape, device=device, generator=gen) / (kf * x_dim) ** 0.5
+    return xp, wf, s, q
+
+
+def test_tf32_round_ties_away_and_clears_the_low_bits():
+    one_ulp = 2.0 ** -10  # TF32 keeps 10 mantissa bits
+    x = torch.tensor([1 + one_ulp / 2, -(1 + one_ulp / 2), 1 + one_ulp / 2 - 2.0 ** -23,
+                      1 + 3 * one_ulp / 2, 0.0, -3.5])
+    want = torch.tensor([1 + one_ulp, -(1 + one_ulp), 1.0, 1 + 2 * one_ulp, 0.0, -3.5])
+    got = gouter_kernel.tf32_round(x)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    r = gouter_kernel.tf32_round(torch.randn(4096))
+    assert not (r.view(torch.int32) & 0x1FFF).any()
+
+
+def test_tf32_split_keeps_22_bits():
+    """hi + lo, each a TF32 value, is within 2^-22 of the f32 operand."""
+    a = torch.randn(100000) * torch.exp(torch.randn(100000) * 4)
+    hi = gouter_kernel.tf32_round(a)
+    lo = gouter_kernel.tf32_round(a - hi)
+    err = (a.double() - hi.double() - lo.double()).abs()
+    assert (err <= 2.0 ** -22 * a.double().abs()).all()
+
+
+def _tap_dots_3xtf32(xp, wf, s, q, flip_t):
+    """The kernel's arithmetic on the CPU: both operands split into TF32 hi
+    and lo by bit masking, lo*hi + hi*lo + hi*hi per tap, products exact
+    (float64)."""
+    w = torch.flip(wf, (0,)).transpose(-1, -2) if flip_t else wf
+    parts = []
+    for t in (xp, w):
+        hi = gouter_kernel.tf32_round(t)
+        parts.append((hi.double(), gouter_kernel.tf32_round(t - hi).double()))
+    (a_hi, a_lo), (b_hi, b_lo) = parts
+    y = 0.0
+    for mf in range(w.shape[0]):
+        win = slice(mf * s, mf * s + q)
+        bh, bl = b_hi[mf].unsqueeze(1), b_lo[mf].unsqueeze(1)
+        y = y + a_lo[:, :, win] @ bh + a_hi[:, :, win] @ bl + a_hi[:, :, win] @ bh
+    return y.float()
+
+
+@pytest.mark.parametrize("shape, flip_t", [
+    ((4, 2, 36, 128, 128, 21, 1, 16), False),   # third scale, q = 16, kf = 21
+    ((4, 2, 76, 128, 256, 7, 1, 70), True),     # a ragged dx call (q = Qp = 70)
+    ((4, 2, 70, 256, 128, 7, 1, 64), False),
+    ((4, 3, 29, 128, 512, 5, 3, 17), False),    # strided taps
+])
+def test_3xtf32_tap_dots_match_plain_twin(shape, flip_t):
+    """3xTF32 is inside the kernel's budget against the f32 twin (rtol 1e-5,
+    atol 1e-5 of max |y|), at MSD-like widths and tap counts."""
+    xp, wf, s, q = _tap_inputs(shape, flip_t, torch.device("cpu"))
+    want = gouter_kernel.gouter_tap_dots_reference(xp, wf, s, q, flip_t)
+    got = _tap_dots_3xtf32(xp, wf, s, q, flip_t)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("flip_t", [False, True])
+def test_weight_split_twin_is_flip_transpose_of_wf(flip_t):
+    """The prologue's twin, unswizzled: hi is TF32 and hi + lo is the
+    K-major operand (wf transposed, or for flip_t flipped over the taps)."""
+    wf = torch.randn(3, 4, 64, 96)
+    wk = gouter_kernel.split_weights_reference(wf, flip_t)
+    two, kf, g, kb, n, _ = wk.shape
+    assert (two, kf, g, kb * 32, n) == ((2, 3, 4, 96, 64) if flip_t else (2, 3, 4, 64, 96))
+    hi, lo = gouter_kernel._swizzle_rows(wk).transpose(3, 4).reshape(2, kf, g, n, kb * 32)
+    want = torch.flip(wf, (0,)) if flip_t else wf.transpose(-1, -2)
+    torch.testing.assert_close(hi, gouter_kernel.tf32_round(want), rtol=0, atol=0)
+    torch.testing.assert_close(hi + lo, want, rtol=2.0 ** -21, atol=0)
+    # the swizzle moves whole 16-byte chunks within a row: row n = 1 swaps
+    # chunks 0 and 1
+    logical = torch.arange(2 * 32, dtype=torch.float32).reshape(1, 2, 32)
+    sw = gouter_kernel._swizzle_rows(logical)
+    assert sw[0, 0].tolist() == logical[0, 0].tolist()
+    assert sw[0, 1, :4].tolist() == logical[0, 1, 4:8].tolist()
+
+
+@pytest.mark.parametrize("shape", B2_SHAPES + B2_DX_SHAPES)
+def test_tile_plan_fills_the_card(shape):
+    """Every call launches at least one block per SM (132 on an H100): the
+    128x128 tile where it can, else 64x64, else 64x64 with K split into
+    non-empty runs of K blocks."""
+    g, b, _, x_dim, y_dim, kf, _, q = shape
+    n_kb = kf * x_dim // 32
+    nwg, bn, splits = gouter_kernel.plan_tiles(g, b * q, y_dim, n_kb)
+    blocks = -(-b * q // (64 * nwg)) * (y_dim // bn) * g * splits
+    assert (nwg, bn) in ((2, 128), (1, 64)) and 1 <= splits <= n_kb
+    assert blocks >= 132 or splits == n_kb
+    if splits > 1:
+        assert (nwg, bn) == (1, 64)
+        per = -(-n_kb // splits)
+        assert (splits - 1) * per < n_kb
+    if (nwg, bn) == (1, 64):
+        assert -(-b * q // 128) * (y_dim // 128) * g < 132
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", B2_SHAPES)
-def test_cuda_tap_dots_match_plain_twin(cuda_device, shape):
-    from neuraltexttospeech_torch.ops import gouter_kernel
-
+@pytest.mark.parametrize("shape, flip_t", [(s, False) for s in B2_SHAPES]
+                         + [(s, True) for s in B2_DX_SHAPES])
+def test_cuda_tap_dots_match_plain_twin(cuda_device, shape, flip_t):
     torch.backends.cuda.matmul.allow_tf32 = False
-    g, b, qp, x_dim, y_dim, kf, s, q = shape
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    xp = torch.randn(g, b, qp, x_dim, device=cuda_device, generator=gen)
-    wf = torch.randn(kf, g, x_dim, y_dim, device=cuda_device, generator=gen) / (kf * x_dim) ** 0.5
+    xp, wf, s, q = _tap_inputs(shape, flip_t, cuda_device)
     before = gouter_kernel.gouter_tap_dots_kernel.launches
-    got = gouter_kernel.gouter_tap_dots_kernel(xp, wf, s, q)
+    got = gouter_kernel.gouter_tap_dots_kernel(xp, wf, s, q, flip_t)
     torch.cuda.synchronize()
     assert gouter_kernel.gouter_tap_dots_kernel.launches == before + 1
-    want = gouter_kernel.gouter_tap_dots_reference(xp, wf, s, q)
+    want = gouter_kernel.gouter_tap_dots_reference(xp, wf, s, q, flip_t)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flip_t", [False, True])
+def test_cuda_weight_split_matches_twin(cuda_device, flip_t):
+    wf = torch.randn(7, 16, 256, 128, device=cuda_device)
+    got = gouter_kernel.split_weights(wf, flip_t)
+    torch.testing.assert_close(got, gouter_kernel.split_weights_reference(wf, flip_t),
+                               rtol=0, atol=0)
 
 
 @pytest.mark.gpu
@@ -171,8 +349,6 @@ def test_cuda_tap_dots_autograd_matches_twin(cuda_device):
     """Forward and dx through the kernel (two launches), dw through einsum,
     against autograd through the per-tap loop."""
     from neuraltexttospeech_torch.nn.fastconv import gouter_tap_dots
-    from neuraltexttospeech_torch.ops import gouter_kernel
-
     torch.backends.cuda.matmul.allow_tf32 = False
     g, b, q, x_dim, y_dim, kf, s = 16, 4, 40, 256, 128, 7, 2
     gen = torch.Generator(device=cuda_device).manual_seed(1)
@@ -192,13 +368,12 @@ def test_cuda_tap_dots_autograd_matches_twin(cuda_device):
 
 @pytest.mark.gpu
 def test_cuda_tap_dots_refuse_what_the_kernel_does_not_take(cuda_device):
-    from neuraltexttospeech_torch.ops import gouter_kernel
-
     xp = torch.zeros(4, 2, 20, 128, device=cuda_device)
     wf = torch.zeros(3, 4, 128, 128, device=cuda_device)
     for args in ((xp[..., :64].contiguous(), wf[:, :, :64].contiguous(), 1, 8),
                  (xp.double(), wf.double(), 1, 8), (xp, wf, 1, 19),
                  (xp, torch.zeros(3, 4, 128, 96, device=cuda_device), 1, 8),
-                 (xp.transpose(2, 3), wf, 1, 8)):
+                 (xp.transpose(2, 3), wf, 1, 8),
+                 (xp, torch.zeros(3, 4, 128, 256, device=cuda_device), 1, 8, True)):
         with pytest.raises(ValueError):
             gouter_kernel.gouter_tap_dots_kernel(*args)
