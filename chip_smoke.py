@@ -6,13 +6,15 @@
 Phases, each raising on failure:
 
 1. Device: the card's name and power limit.
-2. Kernels: build both kernels from ``ops/csrc`` (one ``nvcc`` each, at
-   once), hold each against its plain PyTorch twin on the card (TF32 off)
+2. Kernels: build the three kernels from ``ops/csrc`` (one ``nvcc`` each,
+   at once), hold each against its plain PyTorch twin on the card (TF32 off)
    and time the kernel, the twin and the PyTorch library call for the same
    function, by device time (the profiler's kernel time) and by CUDA events
    over back-to-back calls (which include the host's dispatch): B1 (log-mel)
    forward and its analytic backward; B2 (the MSD's tap-window grouped GEMM)
-   at every distinct MSD shape of a v1 GAN step, forward and dx.
+   at every distinct MSD shape of a v1 GAN step, forward and dx; MAS
+   (monotonic alignment search, bit for bit) at 16 × 768 × 128 and
+   16 × 870 × 192.
 3. Serving path, through the two serving CLIs with full-width FastPitch and
    HiFi-GAN v1 (random weights from a seed): text → wav for 16 sentences,
    then wav → wav copy-synthesis, whose log-mels go through B1.
@@ -20,12 +22,20 @@ Phases, each raising on failure:
    f32): 3 steps, then ``--resume`` for one more; finite losses, and B1 and
    B2 launched as often per step as the code says. For each path the launch
    counts are zeroed just before and read just after.
-5. Reference checks: at a small width the card's text → wav and
-   copy-synthesis agree with the same weights on the CPU, and so does one
-   GAN step of the small (``TINY``) generator with the full MPD and MSD.
-6. Timing: text → wav at the ``bench.py`` shape (batch 8 × 128 tokens,
+5. FastPitch training path: 16 synthetic wavs with the ``SENTENCES`` texts
+   through the dataset-prep CLI on the card (B1 once per wav), then the
+   FastPitch trainer CLI at full width (batch 16, f32): 3 steps, then
+   ``--resume`` for one more; finite losses, MAS launched once per step, and
+   the serving CLI's loader gives the trainer's model.
+6. Reference checks: at a small width the card's text → wav and
+   copy-synthesis agree with the same weights on the CPU, and so do one
+   GAN step of the small (``TINY``) generator with the full MPD and MSD and
+   one FastPitch train step of the golden's small FastPitch (dropout off).
+7. Timing: text → wav at the ``bench.py`` shape (batch 8 × 128 tokens,
    1024 mel frames), f32 and bf16 autocast, in wall seconds per audio
-   second; the v1 GAN step in ms and samples/s with a profiler split.
+   second; the v1 GAN step in ms and samples/s with a profiler split; the
+   FastPitch train step at the ``bench.py`` shape (16 × 128 tokens × 768
+   frames) in ms and mel frames/s with a profiler split.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -177,10 +187,10 @@ def build_kernels():
     """Build every kernel's library at once, one ``nvcc`` per source."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from neuraltexttospeech_torch.ops import _build, gouter_kernel, mel_kernel
+    from neuraltexttospeech_torch.ops import _build, gouter_kernel, mas_kernel, mel_kernel
 
     t0 = time.perf_counter()
-    sources = (mel_kernel.SOURCE, gouter_kernel.SOURCE)
+    sources = (mel_kernel.SOURCE, gouter_kernel.SOURCE, mas_kernel.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = dict(zip(sources, pool.map(_build.load, sources)))
     log(f"kernels built: {', '.join(sources)} ({time.perf_counter() - t0:.1f} s)")
@@ -416,6 +426,64 @@ def phase_tap_dots(torch, device, card):
             "library_ms": totals["library_ms"]}
 
 
+def mas_bound_ms(batch, t_mel, t_text, out_lens):
+    """Least time an H100 could take for MAS over these inputs (NVIDIA's SXM
+    peaks): bytes at 3.35 TB/s — the log-attention rows the forward needs
+    (4 B an element of the first min(out_len, T_mel) rows), the diagonal
+    choices written for them (1 B) and the path written (4 B an element) —
+    against about 4 f32 operations an element (add, two max, compare) at
+    67 TFLOP/s. Returns ``(bound_ms, bound_by)``."""
+    rows = sum(min(int(m), t_mel) for m in out_lens)
+    nbytes = 5 * rows * t_text + 4 * batch * t_mel * t_text
+    t_bytes, t_ops = nbytes / 3.35e12 * 1e3, 4 * rows * t_text / 67e12 * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_mas(torch, device, card):
+    """MAS: the kernel against its plain twin on the card (bit for bit) at
+    the ``bench.py`` FastPitch shape (16 × 768 mel frames × 128 tokens) and
+    at 16 copies of the longest LJSpeech clip (870 × 192), timed beside the
+    twin and the bound. Returns the JSON record (the first shape)."""
+    from neuraltexttospeech_torch.ops import mas_kernel
+
+    record = None
+    for b, t_mel, t_text in ((16, 768, 128), (16, 870, 192)):
+        gen = torch.Generator(device=device).manual_seed(t_mel)
+        la = torch.log_softmax(torch.randn(b, t_mel, t_text, device=device, generator=gen), -1)
+        in_lens = torch.full((b,), t_text, dtype=torch.int32, device=device)
+        out_lens = torch.full((b,), t_mel, dtype=torch.int32, device=device)
+        got = mas_kernel.maximum_path(la, in_lens, out_lens)
+        want = mas_kernel.maximum_path_reference(la, in_lens, out_lens)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise RuntimeError(f"MAS kernel differs from its twin at {b}x{t_mel}x{t_text}: "
+                               f"{int((got != want).sum())} elements")
+        fns = {"kernel": lambda: mas_kernel.maximum_path(la, in_lens, out_lens),
+               "plain": lambda: mas_kernel.maximum_path_reference(la, in_lens, out_lens)}
+        ev = {"kernel": cuda_ms(fns["kernel"], 20), "plain": cuda_ms(fns["plain"], 3)}
+        dev = {"kernel": device_ms(torch, fns["kernel"], reps=10)}
+        # the MAS kernel's own time, from the same trace of 10 calls
+        own = sum(ms for ms, name in device_breakdown.last if "mas_kernel" in name) / 10
+        dev["plain"] = device_ms(torch, fns["plain"], reps=2)
+        bound_ms, bound_by = mas_bound_ms(b, t_mel, t_text, [t_mel] * b)
+        log(f"MAS {b}x{t_mel}x{t_text}: kernel == twin bit for bit; device time kernel "
+            f"{dev['kernel'] * 1e3:.2f} us (the MAS kernel itself {own * 1e3:.2f} us, the rest "
+            f"the wrapper's zero fill of the path), plain loop {dev['plain'] * 1e3:.1f} us; CUDA "
+            f"events over back-to-back calls kernel {ev['kernel'] * 1e3:.2f} us, plain "
+            f"{ev['plain'] * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us ({bound_by}), {bound_ms / dev['kernel']:.1%} of it "
+            f"reached; {t_mel} dependent rows, {dev['kernel'] / t_mel * 1e6:.1f} ns a row [{card}]")
+        if record is None:
+            record = {"name": "mas_kernel.maximum_path", "route": "cuda",
+                      "source": "neuraltexttospeech_torch/ops/csrc/mas_kernel.cu",
+                      "replaces": "neuraltexttospeech_tpu/ops/mas.py:94",
+                      "note": "the TPU version is a lax.scan, not a Pallas kernel",
+                      "launches": None, "max_abs_err": 0.0, "ms": dev["kernel"],
+                      "plain_ms": dev["plain"], "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": None}
+        del la, got, want
+    return record
+
+
 def save_models(torch, device, fp_cfg, hg_cfg, seed, tag):
     from neuraltexttospeech_torch.models.hifigan import Generator
     from neuraltexttospeech_torch.models.registry import save_checkpoint
@@ -552,6 +620,142 @@ def phase_training(torch, device, card):
         torch.testing.assert_close(gen(mel), trainer.gen(mel), rtol=1e-4, atol=1e-5)
     return {"b1": b1, "b2": b2, "b1_per_step": b1 // steps, "b2_per_step": b2 // steps,
             "trainer": trainer}
+
+
+def phase_fastpitch_training(torch, device, card):
+    """FastPitch training through its CLIs at full width: dataset prep of 16
+    synthetic wavs with the ``SENTENCES`` texts on the card (B1 once per
+    wav), then batch 16, 3 steps and ``--resume`` for a 4th; MAS once per
+    step; the serving loader gives the trainer's model. Returns the counts
+    and the trainer."""
+    from neuraltexttospeech_torch.cli import fastpitch_prepare_dataset, fastpitch_train
+    from neuraltexttospeech_torch.data.filelist import save_wav
+    from neuraltexttospeech_torch.models.registry import load_checkpoint
+    from neuraltexttospeech_torch.ops import gouter_kernel, mas_kernel, mel_kernel
+
+    rng = np.random.default_rng(9)
+    lines = []
+    for i, text in enumerate(SENTENCES):
+        path = WORK / "fp_wavs" / f"fp_{i}.wav"
+        save_wav(str(path), synthetic_wavs(1, 1.5 + 2.0 * rng.uniform(), seed=20 + i)[0], SR)
+        lines.append(f"{path}|{text}")
+    filelist = WORK / "fp_train.txt"
+    filelist.write_text("\n".join(lines) + "\n")
+    feats = WORK / "fp_feats"
+
+    mel_kernel.fused_frames_to_mel.launches = 0
+    t0 = time.perf_counter()
+    fastpitch_prepare_dataset.main(["-d", str(feats), "--training-files", str(filelist)])
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    b1_prep = mel_kernel.fused_frames_to_mel.launches
+    if b1_prep != len(SENTENCES):
+        raise RuntimeError(f"dataset prep launched B1 {b1_prep} times for {len(SENTENCES)} wavs")
+
+    args = ["-o", str(WORK / "fp_train"), "-d", str(feats), "--training-files", str(filelist),
+            "-bs", "16", "--steps-per-epoch", "1"]
+    for counted in (mel_kernel.fused_frames_to_mel, gouter_kernel.gouter_tap_dots_kernel,
+                    mas_kernel.maximum_path):
+        counted.launches = 0
+    t0 = time.perf_counter()
+    first = fastpitch_train.main(args + ["--epochs", "3"])
+    resumed = fastpitch_train.main(args + ["--epochs", "4", "--resume"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mas = mas_kernel.maximum_path.launches
+    b1, b2 = mel_kernel.fused_frames_to_mel.launches, gouter_kernel.gouter_tap_dots_kernel.launches
+
+    steps = first["steps"] + resumed["steps"]
+    trainer = resumed["trainer"]
+    if (first["steps"], resumed["steps"], trainer.step) != (3, 1, 4):
+        raise RuntimeError(f"FastPitch trainer ran {first['steps']} + {resumed['steps']} steps, "
+                           f"ended at step {trainer.step}")
+    for run in (first, resumed):
+        bad = {k: v for k, v in run["metrics"].items() if not np.isfinite(v)}
+        if bad or not run["metrics"]:
+            raise RuntimeError(f"non-finite or missing FastPitch losses: {run['metrics']}")
+    log(f"FastPitch training path: dataset prep of {len(SENTENCES)} wavs {prep_s:.1f} s (B1 "
+        f"launches {b1_prep}); full width, batch 16, {steps} steps (3, then --resume 1) in "
+        f"{wall:.1f} s with set-up and checkpoints; MAS launches {mas} ({mas / steps:g} per step), "
+        f"B1 {b1}, B2 {b2}; last losses "
+        + " ".join(f"{k}={v:.4f}" for k, v in sorted(resumed["metrics"].items())) + f" [{card}]")
+    if mas != steps or b1 or b2:
+        raise RuntimeError(f"the FastPitch step launched MAS {mas}, B1 {b1}, B2 {b2} times in "
+                           f"{steps} steps; expected {steps}, 0, 0")
+    served, _ = load_checkpoint(WORK / "fp_train" / "checkpoints" / "4", "FastPitch", device)
+    text = torch.randint(1, 148, (4, 32), device=device,
+                         generator=torch.Generator(device=device).manual_seed(0))
+    model = trainer.model.eval()
+    with torch.no_grad():
+        for x, y in zip(served.infer(text, None, max_mel_len=256),
+                        model.infer(text, None, max_mel_len=256)):
+            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6)
+    return {"mas": mas, "mas_per_step": mas // steps, "b1_prep": b1_prep, "trainer": trainer}
+
+
+# the small FastPitch of the committed golden (tools/make_goldens.py:62-69)
+FP_TINY = dict(n_symbols=40, symbols_embedding_dim=64, in_fft_n_layers=1, in_fft_d_head=16,
+               in_fft_n_heads=2, in_fft_conv1d_filter_size=128, out_fft_n_layers=1,
+               out_fft_d_head=16, out_fft_n_heads=2, out_fft_conv1d_filter_size=128,
+               dur_predictor_filter_size=32, pitch_predictor_filter_size=32,
+               energy_predictor_filter_size=32)
+
+
+def fastpitch_batch(seed, batch, t_text, t_mel, n_symbols, text_lens, mel_lens):
+    """A random FastPitch batch (numpy), padded past the given lengths."""
+    rng = np.random.default_rng(seed)
+    text_lens, mel_lens = np.asarray(text_lens, np.int32), np.asarray(mel_lens, np.int32)
+    text = rng.integers(1, n_symbols, (batch, t_text)).astype(np.int32)
+    text[np.arange(t_text)[None] >= text_lens[:, None]] = 0
+    valid = np.arange(t_mel)[None, :, None] < mel_lens[:, None, None]
+    pitch = rng.standard_normal((batch, 1, t_mel)).astype(np.float32)
+    pitch[rng.uniform(size=pitch.shape) < 0.3] = 0.0
+    return {"text": text, "input_lens": text_lens, "mel_lens": mel_lens,
+            "mel": (rng.standard_normal((batch, t_mel, 80)) * valid).astype(np.float32),
+            "pitch": pitch,
+            "energy": np.abs(rng.standard_normal((batch, t_mel))).astype(np.float32)}
+
+
+def phase_fastpitch_reference(torch, device):
+    """One FastPitch train step of the golden's small FastPitch, dropout off:
+    card vs CPU from the same weights and batch, at the tolerances of
+    tests/test_torch_fastpitch_optim.py (metrics rtol 2e-4, parameters rtol
+    3e-3 / atol 3e-5, Adam eps 1e-6)."""
+    import dataclasses
+
+    from neuraltexttospeech_torch.cli.fastpitch_train import make_loss_fn
+    from neuraltexttospeech_torch.models.fastpitch import FastPitch, FastPitchConfig
+    from neuraltexttospeech_torch.models.fastpitch_loss import FastPitchLossConfig
+    from neuraltexttospeech_torch.train.harness import Trainer, TrainerConfig
+    from neuraltexttospeech_torch.train.state import OptimizerConfig
+
+    no_dropout = {f.name: 0.0 for f in dataclasses.fields(FastPitchConfig)
+                  if f.name.startswith("p_")}
+    cfg = FastPitchConfig(**FP_TINY, **no_dropout)
+    torch.manual_seed(3)
+    weights = FastPitch(cfg).state_dict()
+    batch = fastpitch_batch(4, 3, 16, 48, 40, [16, 10, 6], [48, 37, 20])
+    cpu = torch.device("cpu")
+    out = {}
+    for dev in (device, cpu):
+        model = FastPitch(cfg)
+        model.load_state_dict(weights)
+        trainer = Trainer(make_loss_fn(FastPitchLossConfig(), 1), model,
+                          TrainerConfig(optimizer=OptimizerConfig(learning_rate=1e-3, eps=1e-6)),
+                          dev)
+        metrics = trainer.train_step({k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+        out[dev.type] = ({k: float(v) for k, v in metrics.items()},
+                         {k: v.detach().cpu() for k, v in model.state_dict().items()})
+    worst_m = max(abs(out["cuda"][0][k] - v) / max(abs(v), 1e-12) for k, v in out["cpu"][0].items())
+    for k, v in out["cpu"][0].items():
+        np.testing.assert_allclose(out["cuda"][0][k], v, rtol=2e-4, err_msg=k)
+    worst_p = 0.0
+    for k, v in out["cpu"][1].items():
+        np.testing.assert_allclose(out["cuda"][1][k].numpy(), v.numpy(), rtol=3e-3, atol=3e-5,
+                                   err_msg=k)
+        worst_p = max(worst_p, (out["cuda"][1][k] - v).abs().max().item())
+    log(f"reference: small FastPitch train step card vs CPU: max relative metric diff "
+        f"{worst_m:.2e}, max|param diff| {worst_p:.2e}")
 
 
 def phase_gan_reference(torch, device):
@@ -786,6 +990,56 @@ def phase_train_timing(torch, trainer, card):
         f"{name} x{count} {ms:.1f} ms" for name, (count, ms) in runtime))
 
 
+def phase_fastpitch_timing(torch, device, card):
+    """The FastPitch train step at the ``bench.py`` shape (16 × 128 tokens ×
+    768 mel frames, random batch, full width, dropout on, f32, TF32 off): wall
+    ms (median of 5 synchronised steps) and mel frames/s, the profiler's busy
+    time and idle share, the top kernels, MAS's share and the host's kernel
+    launches per step."""
+    from neuraltexttospeech_torch.cli.fastpitch_train import make_loss_fn
+    from neuraltexttospeech_torch.models.fastpitch import FastPitch, FastPitchConfig
+    from neuraltexttospeech_torch.models.fastpitch_loss import FastPitchLossConfig
+    from neuraltexttospeech_torch.train.harness import Trainer, TrainerConfig
+
+    B, T_TEXT, T_MEL = 16, 128, 768
+    torch.manual_seed(0)
+    trainer = Trainer(make_loss_fn(FastPitchLossConfig(), 1), FastPitch(FastPitchConfig()),
+                      TrainerConfig(), device)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in fastpitch_batch(
+        5, B, T_TEXT, T_MEL, 148, [T_TEXT] * B, [T_MEL] * B).items()}
+    for _ in range(2):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, hosts = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(batch)
+        hosts.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    if not all(np.isfinite(float(v)) for v in metrics.values()):
+        raise RuntimeError(f"non-finite FastPitch metrics at the bench shape: {metrics}")
+    wall = float(np.median(walls))
+    log(f"FastPitch train step f32 (TF32 off), full width, dropout on: batch {B} x {T_TEXT} "
+        f"tokens x {T_MEL} frames: wall {wall * 1e3:.1f} ms (runs "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in walls)}; host done issuing after "
+        f"{', '.join(f'{h * 1e3:.1f}' for h in hosts)}) = {B * T_MEL / wall:.0f} mel frames/s; "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    busy, top = device_breakdown(torch, lambda: trainer.train_step(batch), top=8)
+    mas = sum(ms for ms, name in device_breakdown.last if "mas_kernel" in name)
+    launches = sum(count for name, (count, _) in device_breakdown.runtime.items()
+                   if "LaunchKernel" in name)
+    log(f"  trace: card busy {busy:.2f} ms of {wall * 1e3:.2f} ms wall (kernel times sum to "
+        f"{device_breakdown.kernel_sum:.2f} ms), idle share {1 - busy / (wall * 1e3):.3f}, "
+        f"{device_breakdown.launches} device events, {launches} host kernel launches; MAS "
+        f"{mas:.3f} ms ({mas / device_breakdown.kernel_sum:.1%} of kernel time); top: "
+        + "; ".join(f"{ms:.2f} ms {name[:70]}" for ms, name in top))
+    runtime = sorted(device_breakdown.runtime.items(), key=lambda kv: -kv[1][1])[:5]
+    log("  host: CUDA runtime calls " + "; ".join(
+        f"{name} x{count} {ms:.1f} ms" for name, (count, ms) in runtime))
+
+
 def main():
     import torch
 
@@ -808,19 +1062,28 @@ def main():
         build_kernels()
         b1 = phase_kernels(torch, device, smi)
         b2 = phase_tap_dots(torch, device, smi)
+        mas = phase_mas(torch, device, smi)
         serving = phase_serving(torch, device)
         train = phase_training(torch, device, smi)
-        # launches per step on this slice's main path (training); serving's B1
-        # count is checked in phase_serving
+        fastpitch = phase_fastpitch_training(torch, device, smi)
+        # launches per step on the training paths (B1 and B2: the GAN step;
+        # MAS: the FastPitch step); serving's and dataset prep's B1 counts are
+        # checked in their phases
         b1["launches"], b2["launches"] = train["b1_per_step"], train["b2_per_step"]
-        log(f"B1 launches: serving path {serving}, training path {train['b1']}")
+        mas["launches"] = fastpitch["mas_per_step"]
+        log(f"B1 launches: serving path {serving}, GAN training path {train['b1']}, FastPitch "
+            f"dataset prep {fastpitch['b1_prep']}; MAS launches: FastPitch training "
+            f"{fastpitch['mas']}")
         phase_reference(torch, device)
         phase_gan_reference(torch, device)
+        phase_fastpitch_reference(torch, device)
         phase_timing(torch, device, smi)
         phase_train_timing(torch, train["trainer"], smi)
+        del train, fastpitch
+        phase_fastpitch_timing(torch, device, smi)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    print(json.dumps({"kernels": [b1, b2]}))
+    print(json.dumps({"kernels": [b1, b2, mas]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

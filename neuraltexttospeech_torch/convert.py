@@ -24,8 +24,9 @@ layout) and the scale its ``original1`` (``nn/norms.py``); the MSD's
 spectral-norm stats ``u`` and ``sigma`` become the ``sn.<i>`` buffers.
 
 Every leaf must be consumed, or the conversion raises. The one exception is
-FastPitch's ``attention`` subtree (the ``ConvAttention`` aligner), which only
-the training forward uses: it is skipped by name.
+FastPitch's ``attention`` subtree (the ``ConvAttention`` aligner) in
+:func:`fastpitch_from_flax`, the serving conversion, which skips it by name;
+:func:`fastpitch_train_from_flax` carries it too.
 """
 
 from __future__ import annotations
@@ -37,8 +38,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-__all__ = ["fastpitch_from_flax", "generator_from_flax", "fold_weight_norm",
-           "hifigan_train_from_flax"]
+__all__ = ["fastpitch_from_flax", "fastpitch_train_from_flax", "generator_from_flax",
+           "fold_weight_norm", "hifigan_train_from_flax"]
 
 _WN_EPS = 1e-12
 _WN = ".parametrizations.weight."
@@ -172,12 +173,27 @@ def _predictor(sd, key, r: _Reader):
     _dense(sd, f"{key}.fc", r, key, "Dense_0")
 
 
+# flax ConvAttention's convs in creation order -> the port's module names
+_ALIGNER_CONVS = ("key_conv1", "key_conv2", "query_conv1", "query_conv2", "query_conv3")
+
+
 def fastpitch_from_flax(params: dict) -> Dict[str, torch.Tensor]:
-    """flax ``FastPitch`` params → ``models.fastpitch.FastPitch`` state dict.
-    Skips the ``attention`` (aligner) subtree; raises on any other leaf it
-    does not consume."""
+    """flax ``FastPitch`` params → ``models.fastpitch.FastPitch`` serving
+    state dict. Skips the ``attention`` (aligner) subtree; raises on any
+    other leaf it does not consume."""
     tree = fold_weight_norm(_params(params))
     tree.pop("attention", None)
+    return _fastpitch(tree)
+
+
+def fastpitch_train_from_flax(params: dict) -> Dict[str, torch.Tensor]:
+    """flax ``FastPitch`` params, the aligner included → the full
+    ``models.fastpitch.FastPitch`` state dict that the training forward
+    needs. Raises on any leaf it does not consume."""
+    return _fastpitch(fold_weight_norm(_params(params)), aligner=True)
+
+
+def _fastpitch(tree: dict, aligner: bool = False) -> Dict[str, torch.Tensor]:
     r = _Reader(tree)
     sd: Dict[str, torch.Tensor] = {}
     sd["encoder.word_emb.weight"] = _t(r.pop("encoder", "word_emb", "embedding"))
@@ -192,6 +208,9 @@ def fastpitch_from_flax(params: dict) -> Dict[str, torch.Tensor]:
     if "speaker_emb" in tree:
         sd["speaker_emb.weight"] = _t(r.pop("speaker_emb", "embedding"))
     _dense(sd, "proj", r, "proj")
+    if aligner:
+        for i, name in enumerate(_ALIGNER_CONVS):
+            _conv(sd, f"attention.{name}", r, "attention", f"Conv_{i}")
     r.finish()
     return sd
 

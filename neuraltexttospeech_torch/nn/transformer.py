@@ -3,7 +3,9 @@
 Counterpart of ``neuraltexttospeech_tpu/nn/transformer.py``: sinusoidal
 positional embeddings, ``MultiHeadAttn`` with a fused QKV projection,
 ``PositionwiseConvFF``, post-LN residual layers and the ``FFTransformer``
-wrapper. Inference only: dropout is off.
+wrapper. Dropout sits where JAX has it (attention probabilities, the
+attention and FFN outputs, the embedding) and runs only when a call is
+given a generator (``nn/layers.py``).
 
 Masking adds a -1e9 bias on padded keys, as in JAX, so fully padded query
 rows stay finite.
@@ -19,7 +21,7 @@ import torch
 from torch import nn
 
 from ..utils.masking import mask_from_lens
-from .layers import LN_EPS, ConvNorm
+from .layers import LN_EPS, ConvNorm, dropout
 
 __all__ = [
     "positional_embedding",
@@ -51,52 +53,60 @@ class MultiHeadAttn(nn.Module):
     """Post-LN self-attention with fused QKV; output features of ``qkv`` are
     ordered ``[3][n_head][d_head]`` as in JAX."""
 
-    def __init__(self, n_head: int, d_model: int, d_head: int):
+    def __init__(self, n_head: int, d_model: int, d_head: int, dropout: float = 0.0,
+                 dropatt: float = 0.0):
         super().__init__()
         self.n_head, self.d_head = n_head, d_head
+        self.p_dropout, self.p_dropatt = dropout, dropatt
         self.qkv = nn.Linear(d_model, 3 * n_head * d_head)
         self.o = nn.Linear(n_head * d_head, d_model, bias=False)
         self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
 
-    def forward(self, x: torch.Tensor, attn_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attn_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: [B, T, C]; attn_mask: [B, T] bool, True = valid key."""
         B, T = x.shape[0], x.shape[1]
         qkv = self.qkv(x).view(B, T, 3, self.n_head, self.d_head)
         q, k, v = qkv.unbind(2)  # [B, T, H, D]
         score = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / np.sqrt(self.d_head))
         bias = torch.where(attn_mask[:, None, None, :], 0.0, _NEG)
-        prob = torch.softmax(score + bias, dim=-1)
+        prob = dropout(torch.softmax(score + bias, dim=-1), self.p_dropatt, generator)
         out = torch.einsum("bhqk,bkhd->bqhd", prob.to(v.dtype), v)
         out = self.o(out.reshape(B, T, self.n_head * self.d_head))
-        return self.layer_norm(x + out)
+        return self.layer_norm(x + dropout(out, self.p_dropout, generator))
 
 
 class PositionwiseConvFF(nn.Module):
-    """conv(k) -> ReLU -> conv(k), post-LN residual."""
+    """conv(k) -> ReLU -> conv(k) -> dropout, post-LN residual."""
 
-    def __init__(self, d_model: int, d_inner: int, kernel_size: int = 3):
+    def __init__(self, d_model: int, d_inner: int, kernel_size: int = 3,
+                 dropout: float = 0.0):
         super().__init__()
         self.conv1 = ConvNorm(d_model, d_inner, kernel_size)
         self.conv2 = ConvNorm(d_inner, d_model, kernel_size)
         self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.p_dropout = dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.layer_norm(x + self.conv2(torch.relu(self.conv1(x))))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        y = dropout(self.conv2(torch.relu(self.conv1(x))), self.p_dropout, generator)
+        return self.layer_norm(x + y)
 
 
 class FFTransformerLayer(nn.Module):
     """Attention + ConvFF block with the mask re-applied after each."""
 
     def __init__(self, n_head: int, d_model: int, d_head: int, d_inner: int,
-                 kernel_size: int):
+                 kernel_size: int, dropout: float = 0.0, dropatt: float = 0.0):
         super().__init__()
-        self.attn = MultiHeadAttn(n_head, d_model, d_head)
-        self.ff = PositionwiseConvFF(d_model, d_inner, kernel_size)
+        self.attn = MultiHeadAttn(n_head, d_model, d_head, dropout, dropatt)
+        self.ff = PositionwiseConvFF(d_model, d_inner, kernel_size, dropout)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         m = mask[..., None].to(x.dtype)
-        x = self.attn(x, mask) * m
-        return self.ff(x) * m
+        x = self.attn(x, mask, generator) * m
+        return self.ff(x, generator) * m
 
 
 class FFTransformer(nn.Module):
@@ -105,19 +115,22 @@ class FFTransformer(nn.Module):
 
     def __init__(self, n_layer: int, n_head: int, d_model: int, d_head: int,
                  d_inner: int, kernel_size: int, embed_input: bool = True,
-                 n_emb: Optional[int] = None, padding_idx: int = 0):
+                 n_emb: Optional[int] = None, padding_idx: int = 0, dropout: float = 0.0,
+                 dropatt: float = 0.0, dropemb: float = 0.0):
         super().__init__()
         self.d_model = d_model
+        self.p_dropemb = dropemb
         self.embed_input = embed_input
         self.padding_idx = padding_idx
         if embed_input:
             self.word_emb = nn.Embedding(n_emb, d_model)
         self.layers = nn.ModuleList(
-            FFTransformerLayer(n_head, d_model, d_head, d_inner, kernel_size)
+            FFTransformerLayer(n_head, d_model, d_head, d_inner, kernel_size, dropout, dropatt)
             for _ in range(n_layer))
 
     def forward(self, x: torch.Tensor, seq_lens: Optional[torch.Tensor] = None,
-                conditioning: Optional[torch.Tensor] = None):
+                conditioning: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         if self.embed_input:
             mask = x != self.padding_idx  # [B, T]
             x = self.word_emb(x)
@@ -130,6 +143,7 @@ class FFTransformer(nn.Module):
         out = x + pos[None] * mask[..., None].to(pos.dtype)
         if conditioning is not None:
             out = out + conditioning
+        out = dropout(out, self.p_dropemb, generator)
         for layer in self.layers:
-            out = layer(out, mask)
+            out = layer(out, mask, generator)
         return out, mask

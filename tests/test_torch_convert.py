@@ -2,7 +2,7 @@
 
 FastPitch is initialised through the training forward, as the JAX CLI's
 loader does, so its tree holds the ``attention`` (aligner) subtree that
-the converter skips by name.
+the serving converter skips by name and the training converter carries.
 """
 
 import copy
@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from neuraltexttospeech_torch.convert import (
-    fastpitch_from_flax, fold_weight_norm, generator_from_flax,
+    fastpitch_from_flax, fastpitch_train_from_flax, fold_weight_norm, generator_from_flax,
 )
 from neuraltexttospeech_torch.models import fastpitch as port_fp
 from neuraltexttospeech_torch.models import hifigan as port_hg
@@ -60,7 +60,13 @@ def test_fastpitch_tree_converts_completely(fastpitch_tree):
     port.load_state_dict(sd, strict=True)
     n_leaves = sum(a.size for k, a in _leaves(fastpitch_tree["params"])
                    if not k.startswith("attention/"))
-    assert n_leaves == sum(p.numel() for p in port.parameters())
+    # the port's model has the aligner too; the serving conversion leaves it out
+    assert n_leaves == sum(p.numel() for name, p in port.named_parameters()
+                           if not name.startswith("attention."))
+    train_sd = fastpitch_train_from_flax(fastpitch_tree)
+    port.load_state_dict(train_sd, strict=True)
+    assert sum(a.size for _, a in _leaves(fastpitch_tree["params"])) == sum(
+        p.numel() for p in port.parameters())
 
 
 def test_generator_tree_converts_completely(generator_tree):

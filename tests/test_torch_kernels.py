@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from neuraltexttospeech_torch.audio.stft import STFTConfig, windowed_frames
-from neuraltexttospeech_torch.ops import gouter_kernel, mel_kernel
+from neuraltexttospeech_torch.ops import gouter_kernel, mas, mas_kernel, mel_kernel
 
 CONFIGS = {
     "default": dict(),
@@ -377,3 +377,68 @@ def test_cuda_tap_dots_refuse_what_the_kernel_does_not_take(cuda_device):
                  (xp, torch.zeros(3, 4, 128, 256, device=cuda_device), 1, 8, True)):
         with pytest.raises(ValueError):
             gouter_kernel.gouter_tap_dots_kernel(*args)
+
+
+def _log_attn(shape, seed):
+    """log-softmax rows, as the aligner gives MAS."""
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(seed))
+    return torch.log_softmax(x, dim=-1)
+
+
+def test_mas_twin_on_cpu_counts_no_launch_and_matches_the_oracle():
+    la = _log_attn((1, 41, 13), 0)
+    before = mas_kernel.maximum_path.launches
+    got = mas.maximum_path(la, torch.tensor([13]), torch.tensor([41]))
+    assert mas_kernel.maximum_path.launches == before
+    np.testing.assert_array_equal(got[0].numpy(), mas.mas_width1_numpy(la[0].numpy()))
+
+
+# (B, T_mel, T_text, in_lens, out_lens): one symbol, a full block of 1024
+# threads, a width off the warp, mel lengths below and past T_mel, 0 frames
+MAS_SHAPES = [
+    (3, 50, 1, [1, 1, 1], [50, 20, 1]),
+    (2, 1100, 1024, [1024, 700], [1100, 1050]),
+    (4, 97, 45, [45, 30, 2, 45], [97, 60, 5, 120]),
+    (16, 768, 128, [128] * 8 + [100] * 8, [768] * 8 + [700] * 8),
+    (2, 870, 192, [192, 160], [870, 0]),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(MAS_SHAPES)))
+def test_cuda_mas_kernel_equals_twin_bit_for_bit(cuda_device, case):
+    B, T_mel, T_text, in_lens, out_lens = MAS_SHAPES[case]
+    la = _log_attn((B, T_mel, T_text), case).to(cuda_device)
+    in_lens = torch.tensor(in_lens, device=cuda_device)
+    out_lens = torch.tensor(out_lens, device=cuda_device)
+    before = mas_kernel.maximum_path.launches
+    got = mas_kernel.maximum_path(la, in_lens, out_lens)
+    torch.cuda.synchronize()
+    assert mas_kernel.maximum_path.launches == before + 1
+    want = mas_kernel.maximum_path_reference(la, in_lens, out_lens)
+    assert torch.equal(got, want)
+    assert torch.equal(got.sum(dim=(1, 2)).long(), torch.clamp(out_lens, max=T_mel).long())
+
+
+@pytest.mark.gpu
+def test_cuda_mas_kernel_takes_the_masked_log_of_softmax(cuda_device):
+    """Ties everywhere: log(0 + 1e-12) past the text length, equal rows."""
+    soft = torch.zeros(2, 64, 32, device=cuda_device)
+    soft[0, :, :20] = 0.05
+    soft[1] = torch.rand(64, 32, device=cuda_device, generator=torch.Generator(
+        device=cuda_device).manual_seed(0))
+    la = torch.log(soft + 1e-12)
+    lens = (torch.tensor([20, 32], device=cuda_device), torch.tensor([64, 50], device=cuda_device))
+    assert torch.equal(mas_kernel.maximum_path(la, *lens),
+                       mas_kernel.maximum_path_reference(la, *lens))
+
+
+@pytest.mark.gpu
+def test_cuda_mas_kernel_refuses_what_it_does_not_take(cuda_device):
+    lens = torch.tensor([4, 4], device=cuda_device)
+    one = torch.tensor([4], device=cuda_device)  # one length for a batch of two
+    for la, ilens in ((torch.zeros(2, 8, 1025, device=cuda_device), lens),
+                      (torch.zeros(2, 8, 4, device=cuda_device, dtype=torch.float64), lens),
+                      (torch.zeros(2, 8, 4, device=cuda_device), one)):
+        with pytest.raises(ValueError):
+            mas_kernel.maximum_path(la, ilens, lens)
