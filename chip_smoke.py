@@ -12,30 +12,37 @@ Phases, each raising on failure:
    function, by device time (the profiler's kernel time) and by CUDA events
    over back-to-back calls (which include the host's dispatch): B1 (log-mel)
    forward and its analytic backward; B2 (the MSD's tap-window grouped GEMM)
-   at every distinct MSD shape of a v1 GAN step, forward and dx; MAS
-   (monotonic alignment search, bit for bit) at 16 × 768 × 128 and
-   16 × 870 × 192.
+   at every distinct MSD shape of a v1 GAN step, forward and dx, in its f32
+   (3xTF32) and its bf16 form, each beside grouped ``F.conv1d`` in the same
+   type, with an ``HGMMA`` check of both forms' SASS; MAS (monotonic
+   alignment search, bit for bit) at 16 × 768 × 128 and 16 × 870 × 192.
 3. Serving path, through the two serving CLIs with full-width FastPitch and
-   HiFi-GAN v1 (random weights from a seed): text → wav for 16 sentences,
-   then wav → wav copy-synthesis, whose log-mels go through B1.
-4. Training path, through the trainer CLI at v1 (batch 16 × 8192 samples,
-   f32): 3 steps, then ``--resume`` for one more; finite losses, and B1 and
-   B2 launched as often per step as the code says. For each path the launch
-   counts are zeroed just before and read just after.
+   HiFi-GAN v1 (random weights from a seed), f32 and then ``--amp`` (bf16):
+   text → wav for 16 sentences, then wav → wav copy-synthesis, whose
+   log-mels go through B1.
+4. Training path, through the trainer CLI at v1 (batch 16 × 8192 samples),
+   f32 and then ``--amp``: 2 steps, then ``--resume`` for one more; finite
+   losses, f32 parameters, and B1 and B2 launched as often per step as the
+   code says (under ``--amp`` every B2 launch in its bf16 form). Then one
+   step on ``--fine-tuning-mel-dir`` (mels written from the wavs' own
+   log-mels). For each path the launch counts are zeroed just before and
+   read just after.
 5. FastPitch training path: 16 synthetic wavs with the ``SENTENCES`` texts
    through the dataset-prep CLI on the card (B1 once per wav), then the
-   FastPitch trainer CLI at full width (batch 16, f32): 3 steps, then
-   ``--resume`` for one more; finite losses, MAS launched once per step, and
-   the serving CLI's loader gives the trainer's model.
+   FastPitch trainer CLI at full width (batch 16), f32 and then ``--amp``:
+   2 steps, then ``--resume`` for one more; finite losses, MAS launched once
+   per step, and the serving CLI's loader gives the trainer's model.
 6. Reference checks: at a small width the card's text → wav and
    copy-synthesis agree with the same weights on the CPU, and so do one
    GAN step of the small (``TINY``) generator with the full MPD and MSD and
-   one FastPitch train step of the golden's small FastPitch (dropout off).
+   one FastPitch train step of the golden's small FastPitch (dropout off),
+   each in f32 and in bf16 (bf16 by the yardstick of tests/test_torch_bf16.py
+   with the CPU's f32 step in the place of JAX's).
 7. Timing: text → wav at the ``bench.py`` shape (batch 8 × 128 tokens,
-   1024 mel frames), f32 and bf16 autocast, in wall seconds per audio
-   second; the v1 GAN step in ms and samples/s with a profiler split; the
-   FastPitch train step at the ``bench.py`` shape (16 × 128 tokens × 768
-   frames) in ms and mel frames/s with a profiler split.
+   1024 mel frames), f32 and bf16, in wall seconds per audio second; the v1
+   GAN step in ms and samples/s, and the FastPitch train step at the
+   ``bench.py`` shape (16 × 128 tokens × 768 frames) in ms and mel frames/s,
+   each f32 and bf16 with a profiler split, idle share and launch count.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -196,10 +203,19 @@ def build_kernels():
     log(f"kernels built: {', '.join(sources)} ({time.perf_counter() - t0:.1f} s)")
     sass = subprocess.run([_build.tool("cuobjdump"), "-sass", libs[gouter_kernel.SOURCE]._name],
                           capture_output=True, text=True, check=True).stdout
-    n = sass.count("HGMMA")
-    log(f"B2's SASS holds {n} HGMMA (wgmma) instructions")
-    if not n:
-        raise RuntimeError("B2 was compiled without wgmma: no HGMMA in its SASS")
+    # HGMMA (wgmma) instructions in each main-kernel instantiation: the f32
+    # form (Tf32x3, .tf32 operands) and the bf16 form (Bf16, .bf16 operands)
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif "HGMMA" in line and fn and "tap_dots_tc_kernel" in fn:
+            counts[fn] = counts.get(fn, 0) + 1
+    for form in ("Tf32x3", "Bf16"):
+        n = sum(c for name, c in counts.items() if form in name)
+        log(f"B2's {form} instantiations hold {n} HGMMA (wgmma) instructions in their SASS")
+        if not n:
+            raise RuntimeError(f"B2's {form} form was compiled without wgmma: no HGMMA")
 
 
 def phase_kernels(torch, device, card):
@@ -330,17 +346,20 @@ def msd_tap_shapes(batch, length):
     return shapes
 
 
-def tap_dots_bound_ms(shape):
-    """Least time an H100 could take for one f32-accurate tap-window call
-    (NVIDIA's SXM peaks): the larger of 2*g*B*kf*q*X*Y FLOP at 495/3 TFLOP/s
-    (the TF32 tensor cores' dense rate, three products per f32 product) and
-    the bytes of xp, wf and y, each once, at 3.35 TB/s. Returns
-    ``(bound_ms, bound_by, t_ops_ms, t_bytes_ms, fma_bound_ms)``, the last
-    the same bound for f32 FMAs on the CUDA cores (67 TFLOP/s)."""
+def tap_dots_bound_ms(shape, dtype="f32"):
+    """Least time an H100 could take for one tap-window call (NVIDIA's SXM
+    peaks): the larger of 2*g*B*kf*q*X*Y FLOP at the operands' tensor-core
+    rate and the bytes of xp, wf and y, each once, at 3.35 TB/s. f32 is
+    f32-accurate, so 495/3 TFLOP/s (the TF32 tensor cores' dense rate, three
+    products per f32 product) and 4 bytes a value; bf16 is 989 TFLOP/s
+    dense and 2 bytes a value. Returns ``(bound_ms, bound_by, t_ops_ms,
+    t_bytes_ms, fma_bound_ms)``, the last the same bound for f32 FMAs on the
+    CUDA cores (67 TFLOP/s)."""
     g, b, qp, x_dim, y_dim, kf, s, q = shape
     flop = 2 * g * b * kf * q * x_dim * y_dim
-    nbytes = 4 * (g * b * qp * x_dim + kf * g * x_dim * y_dim + g * b * q * y_dim)
-    t_ops, t_bytes = flop / (495e12 / 3) * 1e3, nbytes / 3.35e12 * 1e3
+    rate, size = (989e12, 2) if dtype == "bf16" else (495e12 / 3, 4)
+    nbytes = size * (g * b * qp * x_dim + kf * g * x_dim * y_dim + g * b * q * y_dim)
+    t_ops, t_bytes = flop / rate * 1e3, nbytes / 3.35e12 * 1e3
     fma_ms = max(flop / 67e12 * 1e3, t_bytes)
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", t_ops, t_bytes,
             fma_ms)
@@ -350,40 +369,54 @@ def tap_dots_bound_ms(shape):
 B2_KERNELS = ("tap_dots", "split_weights_kernel", "sum_splits_kernel")
 
 
-def phase_tap_dots(torch, device, card):
+def phase_tap_dots(torch, device, card, dtype="f32"):
     """B2 at every distinct MSD shape of a v1 GAN step (batch 16 × 8192),
     forward and dx (the dx form: weights flipped and transposed in the
-    kernel, ``flip_t``): held against the twin (rtol 1e-5, atol 1e-5·max|y|),
-    timed beside the twin, grouped F.conv1d and the bound. Returns the JSON
-    record (sums over the distinct shapes)."""
+    kernel, ``flip_t``), in its f32 or bf16 form: held against the twin
+    (f32: rtol 1e-5, atol 1e-5·max|y|; bf16: within one bf16 ulp), timed
+    beside the twin, grouped F.conv1d in the same type and the bound.
+    Returns the JSON record (sums over the distinct shapes)."""
     from neuraltexttospeech_torch.ops import gouter_kernel
 
     F = torch.nn.functional
+    bf16 = dtype == "bf16"
     gen = torch.Generator(device=device).manual_seed(0)
     keys = ("ms", "plain_ms", "library_ms", "ev_ms", "ev_plain_ms", "ev_library_ms",
             "bound_ms", "t_ops", "t_bytes", "fma_bound_ms")
     totals = dict.fromkeys(keys, 0.0)
-    worst = 0.0
+    worst = worst_excess = 0.0
     for scale, layer, fwd, dx in msd_tap_shapes(16, 8192):
         for kind, shape, flip_t in (("fwd", fwd, False), ("dx", dx, True)):
             g, b, qp, x_dim, y_dim, kf, s, q = shape
             xp = torch.randn(g, b, qp, x_dim, device=device, generator=gen)
             w_shape = (kf, g, y_dim, x_dim) if flip_t else (kf, g, x_dim, y_dim)
             wf = torch.randn(*w_shape, device=device, generator=gen) / (kf * x_dim) ** 0.5
+            if bf16:
+                xp, wf = xp.bfloat16(), wf.bfloat16()
             got = gouter_kernel.gouter_tap_dots_kernel(xp, wf, s, q, flip_t)
             want = gouter_kernel.gouter_tap_dots_reference(xp, wf, s, q, flip_t)
             torch.cuda.synchronize()
-            d = (got - want).abs().max().item()
-            scale_y = want.abs().max().item()
-            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale_y)
+            if got.dtype != xp.dtype:
+                raise RuntimeError(f"B2 returned {got.dtype} for {xp.dtype} operands")
+            d = (got.float() - want.float()).abs().max().item()
+            scale_y = want.float().abs().max().item()
+            if bf16:
+                excess = gouter_kernel.excess_over_one_bf16_ulp(got, want)
+                worst_excess = max(worst_excess, excess)
+                if excess > 0:
+                    raise RuntimeError(f"B2 bf16 {kind} {shape}: more than one bf16 ulp from "
+                                       f"its twin (by {excess:.3e})")
+            else:
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale_y)
             worst = max(worst, d)
             # the library call: grouped, dilated conv1d over [B, g*X, Qp]
             w_eff = torch.flip(wf, (0,)).transpose(-1, -2) if flip_t else wf
             x_lib = xp.permute(1, 0, 3, 2).reshape(b, g * x_dim, qp).contiguous()
             w_lib = w_eff.permute(1, 3, 2, 0).reshape(g * y_dim, x_dim, kf).contiguous()
             lib = F.conv1d(x_lib, w_lib, dilation=s, groups=g)
-            torch.testing.assert_close(lib.reshape(b, g, y_dim, q).permute(1, 0, 3, 2), want,
-                                       rtol=1e-4, atol=1e-4 * scale_y)
+            lib_tol = 2.0 ** -6 if bf16 else 1e-4  # cuDNN's own sums
+            torch.testing.assert_close(lib.reshape(b, g, y_dim, q).permute(1, 0, 3, 2).float(),
+                                       want.float(), rtol=lib_tol, atol=lib_tol * scale_y)
             fns = {"": lambda: gouter_kernel.gouter_tap_dots_kernel(xp, wf, s, q, flip_t),
                    "plain_": lambda: gouter_kernel.gouter_tap_dots_reference(xp, wf, s, q, flip_t),
                    "library_": lambda: F.conv1d(x_lib, w_lib, dilation=s, groups=g)}
@@ -392,12 +425,13 @@ def phase_tap_dots(torch, device, card):
                 t[f"ev_{name}ms"] = cuda_ms(fn, 5)
                 t[f"{name}ms"] = device_ms(torch, fn, 3)
             t["bound_ms"], bound_by, t["t_ops"], t["t_bytes"], t["fma_bound_ms"] = \
-                tap_dots_bound_ms(shape)
+                tap_dots_bound_ms(shape, dtype)
             flop = 2 * g * b * kf * q * x_dim * y_dim
-            tile = gouter_kernel.plan_tiles(g, b * q, y_dim, kf * x_dim // 32,
+            tile = gouter_kernel.plan_tiles(g, b * q, y_dim,
+                                            kf * x_dim // gouter_kernel.k_block(xp.dtype),
                                             torch.cuda.get_device_properties(device)
                                             .multi_processor_count)
-            log(f"B2 scale {scale} layer {layer} {kind} (g={g}, B={b}, Qp={qp}, X={x_dim}, "
+            log(f"B2 {dtype} scale {scale} layer {layer} {kind} (g={g}, B={b}, Qp={qp}, X={x_dim}, "
                 f"Y={y_dim}, kf={kf}, s={s}, q={q}; tile {64 * tile[0]}x{tile[1]}, "
                 f"{tile[2]} K splits): max|kernel - plain| {d:.3e} ({d / scale_y:.1e} of "
                 f"max|y|); device time kernel {t['ms'] * 1e3:.1f} us "
@@ -405,19 +439,22 @@ def phase_tap_dots(torch, device, card):
                 f"grouped conv1d {t['library_ms'] * 1e3:.1f} us; "
                 f"events kernel {t['ev_ms'] * 1e3:.1f} us, plain {t['ev_plain_ms'] * 1e3:.1f} us, "
                 f"conv1d {t['ev_library_ms'] * 1e3:.1f} us; bound {t['bound_ms'] * 1e3:.1f} us "
-                f"({bound_by}, 3xTF32), {t['bound_ms'] / t['ms']:.1%} of it reached; f32-FMA "
-                f"bound {t['fma_bound_ms'] * 1e3:.1f} us")
+                f"({bound_by}, {'bf16' if bf16 else '3xTF32'}), {t['bound_ms'] / t['ms']:.1%} of "
+                f"it reached; f32-FMA bound {t['fma_bound_ms'] * 1e3:.1f} us")
             for key in keys:
                 totals[key] += t[key]
             del xp, wf, got, want, x_lib, w_lib, lib
-    log(f"B2 all distinct shapes of one MSD pass (15 forward + 15 dx), device time: kernel "
-        f"{totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, grouped conv1d "
+    rate = "bf16 at 989 TFLOP/s" if bf16 else "3xTF32 at 495/3 TFLOP/s"
+    log(f"B2 {dtype} all distinct shapes of one MSD pass (15 forward + 15 dx), device time: "
+        f"kernel {totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, grouped conv1d "
         f"{totals['library_ms']:.3f} ms; events: kernel {totals['ev_ms']:.3f} ms, plain "
         f"{totals['ev_plain_ms']:.3f} ms, conv1d {totals['ev_library_ms']:.3f} ms; bound "
-        f"{totals['bound_ms']:.3f} ms (3xTF32 at 495/3 TFLOP/s; {totals['bound_ms'] / totals['ms']:.1%}"
+        f"{totals['bound_ms']:.3f} ms ({rate}; {totals['bound_ms'] / totals['ms']:.1%}"
         f" reached), f32-FMA bound {totals['fma_bound_ms']:.3f} ms "
-        f"({totals['fma_bound_ms'] / totals['ms']:.1%}) [{card}]")
-    return {"name": "gouter_kernel.gouter_tap_dots_kernel", "route": "cuda",
+        f"({totals['fma_bound_ms'] / totals['ms']:.1%}); max|kernel - twin| {worst:.3e}"
+        + (f", max excess over one bf16 ulp {worst_excess:.3e}" if bf16 else "") + f" [{card}]")
+    return {"name": "gouter_kernel.gouter_tap_dots_kernel" + ("[bf16]" if bf16 else ""),
+            "dtype": "bfloat16" if bf16 else "float32", "route": "cuda",
             "source": "neuraltexttospeech_torch/ops/csrc/gouter_kernel.cu",
             "replaces": "neuraltexttospeech_tpu/ops/gouter_kernel.py:114",
             "launches": None, "max_abs_err": worst, "ms": totals["ms"],
@@ -509,7 +546,8 @@ def check_text2wav_outputs(out_dir, n_utts):
 
 
 def phase_serving(torch, device):
-    """Both serving entry points at full width. Returns B1's launch count."""
+    """Both serving entry points at full width, f32 and then ``--amp``
+    (bf16). Returns B1's launch count of the f32 run."""
     from neuraltexttospeech_torch.audio.stft import num_frames
     from neuraltexttospeech_torch.cli import fastpitch_infer, hifigan_infer
     from neuraltexttospeech_torch.data.filelist import save_wav
@@ -530,32 +568,35 @@ def phase_serving(torch, device):
         names.append(str(path))
     filelist.write_text("\n".join(f"{p}|" for p in names) + "\n")
 
-    mel_kernel.fused_frames_to_mel.launches = 0
-    t0 = time.perf_counter()
-    fastpitch_infer.main(["--checkpoint", str(fp_dir), "--hifigan-checkpoint", str(hg_dir),
-                          "-i", str(text_file), "-o", str(WORK / "text2wav")])
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    hifigan_infer.main(["--checkpoint", str(hg_dir), "-i", str(filelist),
-                        "-o", str(WORK / "copysyn")])
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    launches = mel_kernel.fused_frames_to_mel.launches
-
-    check_text2wav_outputs(WORK / "text2wav", len(SENTENCES))
     from scipy.io import wavfile
 
-    pad = (1024 - HOP) // 2
-    for i, w in enumerate(wavs):
-        _, audio = wavfile.read(WORK / "copysyn" / f"synth_{i}.wav")
-        assert audio.shape == (num_frames(w.size + 2 * pad, 1024, HOP) * HOP,), audio.shape
-    log(f"main path: text->wav {len(SENTENCES)} sentences {t1 - t0:.2f} s, "
-        f"copy-synthesis {len(wavs)} x 10 s {t2 - t1:.2f} s (first calls, "
-        f"checkpoint load included); B1 launches {launches}")
-    if launches != len(wavs):
-        raise RuntimeError(f"copy-synthesis launched the log-mel kernel {launches} "
-                           f"times for {len(wavs)} wavs")
-    return launches
+    counts = {}
+    for tag, flags in (("f32", []), ("bf16", ["--amp"])):
+        mel_kernel.fused_frames_to_mel.launches = 0
+        t0 = time.perf_counter()
+        fastpitch_infer.main(["--checkpoint", str(fp_dir), "--hifigan-checkpoint", str(hg_dir),
+                              "-i", str(text_file), "-o", str(WORK / f"text2wav_{tag}")]
+                             + flags)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        hifigan_infer.main(["--checkpoint", str(hg_dir), "-i", str(filelist),
+                            "-o", str(WORK / f"copysyn_{tag}")] + flags)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts[tag] = launches = mel_kernel.fused_frames_to_mel.launches
+
+        check_text2wav_outputs(WORK / f"text2wav_{tag}", len(SENTENCES))
+        pad = (1024 - HOP) // 2
+        for i, w in enumerate(wavs):
+            _, audio = wavfile.read(WORK / f"copysyn_{tag}" / f"synth_{i}.wav")
+            assert audio.shape == (num_frames(w.size + 2 * pad, 1024, HOP) * HOP,), audio.shape
+        log(f"main path ({tag}): text->wav {len(SENTENCES)} sentences {t1 - t0:.2f} s, "
+            f"copy-synthesis {len(wavs)} x 10 s {t2 - t1:.2f} s (first calls, "
+            f"checkpoint load included); B1 launches {launches}")
+        if launches != len(wavs):
+            raise RuntimeError(f"copy-synthesis ({tag}) launched the log-mel kernel {launches} "
+                               f"times for {len(wavs)} wavs")
+    return counts["f32"]
 
 
 def b2_launches_per_step(segment_size):
@@ -566,55 +607,70 @@ def b2_launches_per_step(segment_size):
     return 6 * len(msd_tap_shapes(1, segment_size))
 
 
-def phase_training(torch, device, card):
-    """The trainer CLI at v1 (batch 16 × 8192, f32, TF32 off) on synthetic
-    wavs: 3 steps, then --resume for a 4th. Returns the launch counts and
-    the trainer."""
-    from neuraltexttospeech_torch.cli import hifigan_train
+def training_wavs():
+    """16 synthetic 1 s wavs and their filelist, for the GAN trainer."""
     from neuraltexttospeech_torch.data.filelist import save_wav
+
+    filelist = WORK / "train.txt"
+    if not filelist.exists():
+        names = []
+        for i, w in enumerate(synthetic_wavs(16, 1.0, seed=5)):
+            path = WORK / "train_wavs" / f"synth_{i}.wav"
+            save_wav(str(path), w, SR)
+            names.append(str(path))
+        filelist.write_text("\n".join(f"{p}|" for p in names) + "\n")
+    return filelist
+
+
+def phase_training(torch, device, card, amp=False):
+    """The trainer CLI at v1 (batch 16 × 8192; f32 with TF32 off, or bf16
+    with ``--amp``) on synthetic wavs: 2 steps, then --resume for a 3rd.
+    Returns the launch counts and the trainer."""
+    from neuraltexttospeech_torch.cli import hifigan_train
     from neuraltexttospeech_torch.ops import gouter_kernel, mel_kernel
 
-    names = []
-    for i, w in enumerate(synthetic_wavs(16, 1.0, seed=5)):
-        path = WORK / "train_wavs" / f"synth_{i}.wav"
-        save_wav(str(path), w, SR)
-        names.append(str(path))
-    filelist = WORK / "train.txt"
-    filelist.write_text("\n".join(f"{p}|" for p in names) + "\n")
-    args = ["--config", "v1", "-o", str(WORK / "train"), "--training-files", str(filelist),
-            "--steps-per-epoch", "1"]
+    tag = "bf16" if amp else "f32"
+    out = WORK / f"train_{tag}"
+    args = ["--config", "v1", "-o", str(out), "--training-files", str(training_wavs()),
+            "--steps-per-epoch", "1"] + (["--amp"] if amp else [])
 
     mel_kernel.fused_frames_to_mel.launches = 0
     gouter_kernel.gouter_tap_dots_kernel.launches = 0
+    gouter_kernel.gouter_tap_dots_kernel.bf16_launches = 0
     t0 = time.perf_counter()
-    first = hifigan_train.main(args + ["--epochs", "3"])
-    resumed = hifigan_train.main(args + ["--epochs", "4", "--resume"])
+    first = hifigan_train.main(args + ["--epochs", "2"])
+    resumed = hifigan_train.main(args + ["--epochs", "3", "--resume"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     b1 = mel_kernel.fused_frames_to_mel.launches
     b2 = gouter_kernel.gouter_tap_dots_kernel.launches
+    b2_bf16 = gouter_kernel.gouter_tap_dots_kernel.bf16_launches
 
     steps = first["steps"] + resumed["steps"]
     trainer = resumed["trainer"]
-    if (first["steps"], resumed["steps"], trainer.step) != (3, 1, 4):
+    if (first["steps"], resumed["steps"], trainer.step, trainer.amp) != (2, 1, 3, amp):
         raise RuntimeError(f"trainer ran {first['steps']} + {resumed['steps']} steps, "
-                           f"ended at step {trainer.step}")
+                           f"ended at step {trainer.step}, amp {trainer.amp}")
     for run in (first, resumed):
         bad = {k: v for k, v in run["metrics"].items() if not np.isfinite(v)}
         if bad or not run["metrics"]:
             raise RuntimeError(f"non-finite or missing losses: {run['metrics']}")
     want_b2 = b2_launches_per_step(trainer.config.segment_size)
-    log(f"training path: v1 GAN step, batch 16 x 8192, {steps} steps (3, then --resume 1) "
-        f"in {wall:.1f} s with set-up and checkpoints; B1 launches {b1} ({b1 / steps:g} per "
-        f"step), B2 launches {b2} ({b2 / steps:g} per step, {want_b2} by the layer plan); "
-        f"last losses " + " ".join(f"{k}={v:.4f}" for k, v in sorted(resumed["metrics"].items()))
-        + f" [{card}]")
-    if b1 != 3 * steps or b2 != want_b2 * steps:
-        raise RuntimeError(f"the GAN step launched B1 {b1} and B2 {b2} times in {steps} steps; "
-                           f"expected {3 * steps} and {want_b2 * steps}")
+    log(f"training path ({tag}): v1 GAN step, batch 16 x 8192, {steps} steps (2, then --resume "
+        f"1) in {wall:.1f} s with set-up and checkpoints; B1 launches {b1} ({b1 / steps:g} per "
+        f"step), B2 launches {b2} ({b2 / steps:g} per step, {want_b2} by the layer plan; "
+        f"{b2_bf16} of them bf16); last losses "
+        + " ".join(f"{k}={v:.4f}" for k, v in sorted(resumed["metrics"].items())) + f" [{card}]")
+    if b1 != 3 * steps or b2 != want_b2 * steps or b2_bf16 != (b2 if amp else 0):
+        raise RuntimeError(f"the {tag} GAN step launched B1 {b1} and B2 {b2} ({b2_bf16} bf16) "
+                           f"times in {steps} steps; expected {3 * steps} and {want_b2 * steps}, "
+                           f"{'all' if amp else 'none'} bf16")
+    if any(p.dtype != torch.float32 for m in (trainer.gen, trainer.mpd, trainer.msd)
+           for p in m.parameters()):
+        raise RuntimeError(f"the {tag} trainer holds parameters that are not f32")
     from neuraltexttospeech_torch.cli import hifigan_infer
 
-    gen, cfg = hifigan_infer.load_generator(WORK / "train" / "checkpoints" / "4", device)
+    gen, cfg = hifigan_infer.load_generator(out / "checkpoints" / "3", device)
     mel = torch.randn(1, 32, cfg.num_mels, device=device)
     with torch.no_grad():
         torch.testing.assert_close(gen(mel), trainer.gen(mel), rtol=1e-4, atol=1e-5)
@@ -622,12 +678,53 @@ def phase_training(torch, device, card):
             "trainer": trainer}
 
 
+def phase_fine_tuning(torch, device, card):
+    """One v1 GAN step (f32, batch 16 × 8192) through the trainer CLI's
+    ``--fine-tuning-mel-dir``: the generator's input mels are the synthetic
+    wavs' own log-mels (through B1 on the card, HiFi-GAN's centered padding),
+    written as an acoustic model's ``<utt>_mel.npy`` would be. The batch
+    brings both mels, so the step launches B1 once (the generated audio's
+    mel) and B2 as in any GAN step."""
+    from neuraltexttospeech_torch.cli import hifigan_infer, hifigan_train
+    from neuraltexttospeech_torch.data.filelist import load_wav
+    from neuraltexttospeech_torch.models.hifigan import HiFiGANConfig
+    from neuraltexttospeech_torch.ops import gouter_kernel, mel_kernel
+
+    filelist = training_wavs()
+    mel_dir = WORK / "ft_mels"
+    mel_dir.mkdir()
+    cfg = HiFiGANConfig.v1()
+    for line in filelist.read_text().splitlines():
+        path = pathlib.Path(line.split("|")[0])
+        audio, _ = load_wav(str(path), SR)
+        np.save(mel_dir / path.name.replace(".wav", "_mel.npy"),
+                hifigan_infer.wav_to_mel(audio, cfg, device).cpu().numpy())
+    mel_kernel.fused_frames_to_mel.launches = 0
+    gouter_kernel.gouter_tap_dots_kernel.launches = 0
+    t0 = time.perf_counter()
+    run = hifigan_train.main(["--config", "v1", "-o", str(WORK / "train_ft"),
+                              "--training-files", str(filelist), "--steps-per-epoch", "1",
+                              "--epochs", "1", "--fine-tuning-mel-dir", str(mel_dir)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    b1, b2 = mel_kernel.fused_frames_to_mel.launches, gouter_kernel.gouter_tap_dots_kernel.launches
+    want_b2 = b2_launches_per_step(cfg.segment_size)
+    log(f"fine-tuning path: v1 GAN step on acoustic-model mels, batch 16 x 8192, "
+        f"{run['steps']} step in {wall:.1f} s with set-up; B1 launches {b1}, B2 {b2}; losses "
+        + " ".join(f"{k}={v:.4f}" for k, v in sorted(run["metrics"].items())) + f" [{card}]")
+    if run["steps"] != 1 or not all(np.isfinite(v) for v in run["metrics"].values()):
+        raise RuntimeError(f"the fine-tuning step ran {run['steps']} steps: {run['metrics']}")
+    if b1 != 1 or b2 != want_b2:
+        raise RuntimeError(f"the fine-tuning step launched B1 {b1} and B2 {b2} times; "
+                           f"expected 1 and {want_b2}")
+
+
 def phase_fastpitch_training(torch, device, card):
     """FastPitch training through its CLIs at full width: dataset prep of 16
     synthetic wavs with the ``SENTENCES`` texts on the card (B1 once per
-    wav), then batch 16, 3 steps and ``--resume`` for a 4th; MAS once per
-    step; the serving loader gives the trainer's model. Returns the counts
-    and the trainer."""
+    wav), then batch 16 in f32 and with ``--amp`` (bf16), each 2 steps and
+    ``--resume`` for a 3rd; MAS once per step; the serving loader gives the
+    trainer's model. Returns the counts."""
     from neuraltexttospeech_torch.cli import fastpitch_prepare_dataset, fastpitch_train
     from neuraltexttospeech_torch.data.filelist import save_wav
     from neuraltexttospeech_torch.models.registry import load_checkpoint
@@ -652,45 +749,52 @@ def phase_fastpitch_training(torch, device, card):
     if b1_prep != len(SENTENCES):
         raise RuntimeError(f"dataset prep launched B1 {b1_prep} times for {len(SENTENCES)} wavs")
 
-    args = ["-o", str(WORK / "fp_train"), "-d", str(feats), "--training-files", str(filelist),
-            "-bs", "16", "--steps-per-epoch", "1"]
-    for counted in (mel_kernel.fused_frames_to_mel, gouter_kernel.gouter_tap_dots_kernel,
-                    mas_kernel.maximum_path):
-        counted.launches = 0
-    t0 = time.perf_counter()
-    first = fastpitch_train.main(args + ["--epochs", "3"])
-    resumed = fastpitch_train.main(args + ["--epochs", "4", "--resume"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    mas = mas_kernel.maximum_path.launches
-    b1, b2 = mel_kernel.fused_frames_to_mel.launches, gouter_kernel.gouter_tap_dots_kernel.launches
+    out = {"b1_prep": b1_prep}
+    for tag, flags in (("f32", []), ("bf16", ["--amp"])):
+        run_dir = WORK / f"fp_train_{tag}"
+        args = ["-o", str(run_dir), "-d", str(feats), "--training-files", str(filelist),
+                "-bs", "16", "--steps-per-epoch", "1"] + flags
+        for counted in (mel_kernel.fused_frames_to_mel, gouter_kernel.gouter_tap_dots_kernel,
+                        mas_kernel.maximum_path):
+            counted.launches = 0
+        t0 = time.perf_counter()
+        first = fastpitch_train.main(args + ["--epochs", "2"])
+        resumed = fastpitch_train.main(args + ["--epochs", "3", "--resume"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        mas = mas_kernel.maximum_path.launches
+        b1 = mel_kernel.fused_frames_to_mel.launches
+        b2 = gouter_kernel.gouter_tap_dots_kernel.launches
 
-    steps = first["steps"] + resumed["steps"]
-    trainer = resumed["trainer"]
-    if (first["steps"], resumed["steps"], trainer.step) != (3, 1, 4):
-        raise RuntimeError(f"FastPitch trainer ran {first['steps']} + {resumed['steps']} steps, "
-                           f"ended at step {trainer.step}")
-    for run in (first, resumed):
-        bad = {k: v for k, v in run["metrics"].items() if not np.isfinite(v)}
-        if bad or not run["metrics"]:
-            raise RuntimeError(f"non-finite or missing FastPitch losses: {run['metrics']}")
-    log(f"FastPitch training path: dataset prep of {len(SENTENCES)} wavs {prep_s:.1f} s (B1 "
-        f"launches {b1_prep}); full width, batch 16, {steps} steps (3, then --resume 1) in "
-        f"{wall:.1f} s with set-up and checkpoints; MAS launches {mas} ({mas / steps:g} per step), "
-        f"B1 {b1}, B2 {b2}; last losses "
-        + " ".join(f"{k}={v:.4f}" for k, v in sorted(resumed["metrics"].items())) + f" [{card}]")
-    if mas != steps or b1 or b2:
-        raise RuntimeError(f"the FastPitch step launched MAS {mas}, B1 {b1}, B2 {b2} times in "
-                           f"{steps} steps; expected {steps}, 0, 0")
-    served, _ = load_checkpoint(WORK / "fp_train" / "checkpoints" / "4", "FastPitch", device)
-    text = torch.randint(1, 148, (4, 32), device=device,
-                         generator=torch.Generator(device=device).manual_seed(0))
-    model = trainer.model.eval()
-    with torch.no_grad():
-        for x, y in zip(served.infer(text, None, max_mel_len=256),
-                        model.infer(text, None, max_mel_len=256)):
-            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6)
-    return {"mas": mas, "mas_per_step": mas // steps, "b1_prep": b1_prep, "trainer": trainer}
+        steps = first["steps"] + resumed["steps"]
+        trainer = resumed["trainer"]
+        if (first["steps"], resumed["steps"], trainer.step, trainer.amp) != (2, 1, 3, bool(flags)):
+            raise RuntimeError(f"FastPitch trainer ({tag}) ran {first['steps']} + "
+                               f"{resumed['steps']} steps, ended at step {trainer.step}")
+        for run in (first, resumed):
+            bad = {k: v for k, v in run["metrics"].items() if not np.isfinite(v)}
+            if bad or not run["metrics"]:
+                raise RuntimeError(f"non-finite or missing FastPitch losses: {run['metrics']}")
+        log(f"FastPitch training path ({tag}): dataset prep of {len(SENTENCES)} wavs "
+            f"{prep_s:.1f} s (B1 launches {b1_prep}); full width, batch 16, {steps} steps (2, "
+            f"then --resume 1) in {wall:.1f} s with set-up and checkpoints; MAS launches {mas} "
+            f"({mas / steps:g} per step), B1 {b1}, B2 {b2}; last losses "
+            + " ".join(f"{k}={v:.4f}" for k, v in sorted(resumed["metrics"].items()))
+            + f" [{card}]")
+        if mas != steps or b1 or b2:
+            raise RuntimeError(f"the FastPitch step ({tag}) launched MAS {mas}, B1 {b1}, B2 {b2} "
+                               f"times in {steps} steps; expected {steps}, 0, 0")
+        served, _ = load_checkpoint(run_dir / "checkpoints" / "3", "FastPitch", device)
+        text = torch.randint(1, 148, (4, 32), device=device,
+                             generator=torch.Generator(device=device).manual_seed(0))
+        model = trainer.model.eval()
+        with torch.no_grad():
+            for x, y in zip(served.infer(text, None, max_mel_len=256),
+                            model.infer(text, None, max_mel_len=256)):
+                torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6)
+        out[tag] = {"mas": mas, "mas_per_step": mas // steps}
+        del trainer, first, resumed, model, served
+    return out
 
 
 # the small FastPitch of the committed golden (tools/make_goldens.py:62-69)
@@ -716,11 +820,46 @@ def fastpitch_batch(seed, batch, t_text, t_mel, n_symbols, text_lens, mel_lens):
             "energy": np.abs(rng.standard_normal((batch, t_mel))).astype(np.float32)}
 
 
+def bf16_yardstick(what, card, cpu_bf16, cpu_f32):
+    """tests/test_torch_bf16.py's yardstick with the CPU run in the place of
+    JAX: |card - CPU| in bf16 at most twice the CPU's own bf16 error plus
+    1e-3 of the f32 value's size. Returns (e_card, e_cpu)."""
+    card, cb, cf = (np.asarray(a, np.float64) for a in (card, cpu_bf16, cpu_f32))
+    e_card, e_cpu = np.abs(card - cb).max(), np.abs(cb - cf).max()
+    if e_card > 2 * e_cpu + 1e-3 * np.abs(cf).max():
+        raise RuntimeError(f"bf16 {what}: card vs CPU {e_card:.3e} beyond twice the CPU's bf16 "
+                           f"error {e_cpu:.3e} + 1e-3 of the f32 value")
+    return e_card, e_cpu
+
+
+def check_bf16_step(label, metrics, params, lr):
+    """A bf16 train step card vs CPU: metrics by :func:`bf16_yardstick`,
+    parameters within 2.5 lr + 1e-6 (an Adam step is about lr sign(g));
+    ``metrics``/``params`` map (amp, device type) to the step's outputs."""
+    worst_m = {}
+    for k, v in metrics[(False, "cpu")].items():
+        worst_m[k] = bf16_yardstick(f"{label} {k}", metrics[(True, "cuda")][k],
+                                    metrics[(True, "cpu")][k], v)
+    worst_p = 0.0
+    for k, v in params[(True, "cpu")].items():
+        d = (params[(True, "cuda")][k].double() - v.double()).abs().max().item()
+        if ".sn." in k:  # spectral-norm stats: f32 from f32 weights in both modes
+            np.testing.assert_allclose(params[(True, "cuda")][k].numpy(), v.numpy(), rtol=1e-4,
+                                       atol=1e-6, err_msg=k)
+        elif d > 2.5 * lr + 1e-6:
+            raise RuntimeError(f"bf16 {label} parameter {k}: card vs CPU {d:.3e} > 2.5 lr")
+        worst_p = max(worst_p, d)
+    log(f"reference: {label} bf16 card vs CPU: metrics (|card - CPU|, CPU bf16 vs f32) "
+        + ", ".join(f"{k} {a:.2e}/{b:.2e}" for k, (a, b) in sorted(worst_m.items()))
+        + f"; max|param diff| {worst_p:.2e} (bound {2.5 * lr + 1e-6:.2e})")
+
+
 def phase_fastpitch_reference(torch, device):
     """One FastPitch train step of the golden's small FastPitch, dropout off:
     card vs CPU from the same weights and batch, at the tolerances of
     tests/test_torch_fastpitch_optim.py (metrics rtol 2e-4, parameters rtol
-    3e-3 / atol 3e-5, Adam eps 1e-6)."""
+    3e-3 / atol 3e-5, Adam eps 1e-6); then the same step in bf16, held to
+    :func:`check_bf16_step`."""
     import dataclasses
 
     from neuraltexttospeech_torch.cli.fastpitch_train import make_loss_fn
@@ -736,16 +875,21 @@ def phase_fastpitch_reference(torch, device):
     weights = FastPitch(cfg).state_dict()
     batch = fastpitch_batch(4, 3, 16, 48, 40, [16, 10, 6], [48, 37, 20])
     cpu = torch.device("cpu")
-    out = {}
-    for dev in (device, cpu):
-        model = FastPitch(cfg)
-        model.load_state_dict(weights)
-        trainer = Trainer(make_loss_fn(FastPitchLossConfig(), 1), model,
-                          TrainerConfig(optimizer=OptimizerConfig(learning_rate=1e-3, eps=1e-6)),
-                          dev)
-        metrics = trainer.train_step({k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
-        out[dev.type] = ({k: float(v) for k, v in metrics.items()},
-                         {k: v.detach().cpu() for k, v in model.state_dict().items()})
+    out, steps = {}, {}
+    for amp in (False, True):
+        for dev in (device, cpu):
+            model = FastPitch(cfg)
+            model.load_state_dict(weights)
+            trainer = Trainer(make_loss_fn(FastPitchLossConfig(), 1), model,
+                              TrainerConfig(optimizer=OptimizerConfig(learning_rate=1e-3,
+                                                                      eps=1e-6)), dev, amp=amp)
+            metrics = trainer.train_step({k: torch.as_tensor(v, device=dev)
+                                          for k, v in batch.items()})
+            steps[(amp, dev.type)] = ({k: float(v) for k, v in metrics.items()},
+                                      {k: v.detach().cpu() for k, v in model.state_dict().items()})
+    out = {dev: steps[(False, dev)] for dev in ("cuda", "cpu")}
+    check_bf16_step("small FastPitch train step", {k: v[0] for k, v in steps.items()},
+                    {k: v[1] for k, v in steps.items()}, 1e-3)
     worst_m = max(abs(out["cuda"][0][k] - v) / max(abs(v), 1e-12) for k, v in out["cpu"][0].items())
     for k, v in out["cpu"][0].items():
         np.testing.assert_allclose(out["cuda"][0][k], v, rtol=2e-4, err_msg=k)
@@ -761,7 +905,8 @@ def phase_fastpitch_reference(torch, device):
 def phase_gan_reference(torch, device):
     """One GAN step of TINY's generator with the full MPD and MSD (gouter
     path, B2 on the card): card vs CPU from the same weights and batch, at
-    tests/test_hifigan.py:211-217's tolerances."""
+    tests/test_hifigan.py:211-217's tolerances; then the same step in bf16
+    (B2's bf16 form on the card), held to :func:`check_bf16_step`."""
     from neuraltexttospeech_torch.models.hifigan import HiFiGANConfig
     from neuraltexttospeech_torch.models.hifigan_gan import HiFiGANTrainer
 
@@ -772,14 +917,18 @@ def phase_gan_reference(torch, device):
                         fast_grouped_convs="gdot_pallas")
     audio = (np.random.default_rng(8).standard_normal((4, 256, 1)) * 0.1).astype(np.float32)
     cpu = torch.device("cpu")
-    out = {}
-    for dev in (device, cpu):
-        trainer = HiFiGANTrainer(cfg, dev)
-        metrics = trainer.train_step({"audio": torch.as_tensor(audio, device=dev)})
-        state = {f"{name}.{k}": v.detach().cpu()
-                 for name in ("gen", "mpd", "msd")
-                 for k, v in getattr(trainer, name).state_dict().items()}
-        out[dev.type] = ({k: float(v) for k, v in metrics.items()}, state)
+    steps = {}
+    for amp in (False, True):
+        for dev in (device, cpu):
+            trainer = HiFiGANTrainer(cfg, dev, amp=amp)
+            metrics = trainer.train_step({"audio": torch.as_tensor(audio, device=dev)})
+            state = {f"{name}.{k}": v.detach().cpu()
+                     for name in ("gen", "mpd", "msd")
+                     for k, v in getattr(trainer, name).state_dict().items()}
+            steps[(amp, dev.type)] = ({k: float(v) for k, v in metrics.items()}, state)
+    out = {dev: steps[(False, dev)] for dev in ("cuda", "cpu")}
+    check_bf16_step("TINY GAN step", {k: v[0] for k, v in steps.items()},
+                    {k: v[1] for k, v in steps.items()}, cfg.learning_rate)
     worst_m = max(abs(out["cuda"][0][k] - out["cpu"][0][k]) for k in out["cpu"][0])
     for k, v in out["cpu"][0].items():
         np.testing.assert_allclose(out["cuda"][0][k], v, rtol=2e-4, atol=2e-5, err_msg=k)
@@ -877,6 +1026,7 @@ def phase_timing(torch, device, card):
     """text → wav at bench.py's shape: batch 8 × 128 tokens, 1024 frames."""
     from neuraltexttospeech_torch.models.fastpitch import FastPitchConfig
     from neuraltexttospeech_torch.models.hifigan import Generator, HiFiGANConfig
+    from neuraltexttospeech_torch.nn.precision import amp_dtype, compute_dtype
 
     B, T_TEXT, MAX_MEL = 8, 128, 1024
     cfg = FastPitchConfig()
@@ -889,7 +1039,7 @@ def phase_timing(torch, device, card):
 
     for amp in (False, True):
         def run():
-            with torch.inference_mode(), torch.autocast("cuda", torch.bfloat16, enabled=amp):
+            with torch.inference_mode(), compute_dtype(amp_dtype(amp)):
                 mel = fp.infer(text, lens, max_mel_len=MAX_MEL)[0]
                 return mel, gen(mel)
 
@@ -905,10 +1055,10 @@ def phase_timing(torch, device, card):
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         wall = float(np.median(walls))
-        with torch.inference_mode(), torch.autocast("cuda", torch.bfloat16, enabled=amp):
+        with torch.inference_mode(), compute_dtype(amp_dtype(amp)):
             fp_ms = cuda_ms(lambda: fp.infer(text, lens, max_mel_len=MAX_MEL), 3)
             gen_ms = cuda_ms(lambda: gen(mel), 3)
-        name = "bf16 autocast" if amp else "f32 (TF32 off)"
+        name = "bf16 (--amp)" if amp else "f32 (TF32 off)"
         log(f"text->wav {name}: batch {B}x{T_TEXT} tokens, {MAX_MEL} frames = "
             f"{audio_s:.3f} s audio: wall {wall:.4f} s (runs {', '.join(f'{w:.4f}' for w in walls)}) "
             f"= {wall / audio_s:.3e} s per audio s; FastPitch {fp_ms:.2f} ms, "
@@ -949,9 +1099,13 @@ def phase_timing(torch, device, card):
 
 
 def phase_train_timing(torch, trainer, card):
-    """The v1 GAN step (batch 16 × 8192) on the CLI's trainer: wall ms and
-    samples/s (median of 3 synchronised steps), the generator's share
-    (CUDA events over its forward and backward), and a profiler split."""
+    """The v1 GAN step (batch 16 × 8192) on the CLI's trainer (f32, or bf16
+    for an ``--amp`` trainer): wall ms and samples/s (median of 3
+    synchronised steps), the generator's share (CUDA events over its forward
+    and backward), and a profiler split with the idle share and launches."""
+    from neuraltexttospeech_torch.nn.precision import amp_dtype, compute_dtype
+
+    mode = "bf16 (--amp)" if trainer.amp else "f32 (TF32 off)"
     rng = np.random.default_rng(6)
     cfg = trainer.config
     batch = {"audio": torch.as_tensor((rng.standard_normal((16, cfg.segment_size, 1)) * 0.1)
@@ -970,9 +1124,10 @@ def phase_train_timing(torch, trainer, card):
     samples = 16 * cfg.segment_size
     mel = torch.randn(16, cfg.segment_size // cfg.hop_size, cfg.num_mels, device=trainer.device)
     dy = torch.randn(16, cfg.segment_size, 1, device=trainer.device)
-    gen_ms = cuda_ms(lambda: torch.autograd.backward(trainer.gen(mel), dy), 3)
+    with compute_dtype(amp_dtype(trainer.amp)):
+        gen_ms = cuda_ms(lambda: torch.autograd.backward(trainer.gen(mel), dy), 3)
     trainer.gen.zero_grad(set_to_none=True)
-    log(f"GAN step v1 f32 (TF32 off): batch 16 x {cfg.segment_size}: wall {wall * 1e3:.1f} ms "
+    log(f"GAN step v1 {mode}: batch 16 x {cfg.segment_size}: wall {wall * 1e3:.1f} ms "
         f"(runs {', '.join(f'{w * 1e3:.1f}' for w in walls)}; host done issuing after "
         f"{', '.join(f'{h * 1e3:.1f}' for h in hosts)}) = {samples / wall:.0f} samples/s; "
         f"generator forward+backward {gen_ms:.1f} ms ({gen_ms / (wall * 1e3):.1%}); peak "
@@ -980,9 +1135,12 @@ def phase_train_timing(torch, trainer, card):
     busy, top = device_breakdown(torch, lambda: trainer.train_step(batch), top=8)
     b2 = sum(ms for ms, name in device_breakdown.last if any(k in name for k in B2_KERNELS))
     b1 = sum(ms for ms, name in device_breakdown.last if "mel_" in name and "_kernel" in name)
-    log(f"  trace: card busy {busy:.2f} ms of {wall * 1e3:.2f} ms wall (kernel times sum to "
-        f"{device_breakdown.kernel_sum:.2f} ms), idle share {1 - busy / (wall * 1e3):.3f}, "
-        f"{device_breakdown.launches} device events; B2 {b2:.2f} ms "
+    launches = sum(count for name, (count, _) in device_breakdown.runtime.items()
+                   if "LaunchKernel" in name)
+    log(f"  trace ({mode}): card busy {busy:.2f} ms of {wall * 1e3:.2f} ms wall (kernel times "
+        f"sum to {device_breakdown.kernel_sum:.2f} ms), idle share "
+        f"{1 - busy / (wall * 1e3):.3f}, {device_breakdown.launches} device events, {launches} "
+        f"host kernel launches; B2 {b2:.2f} ms "
         f"({b2 / device_breakdown.kernel_sum:.1%} of kernel time), B1 {b1:.3f} ms; top: "
         + "; ".join(f"{ms:.2f} ms {name[:70]}" for ms, name in top))
     runtime = sorted(device_breakdown.runtime.items(), key=lambda kv: -kv[1][1])[:5]
@@ -990,12 +1148,12 @@ def phase_train_timing(torch, trainer, card):
         f"{name} x{count} {ms:.1f} ms" for name, (count, ms) in runtime))
 
 
-def phase_fastpitch_timing(torch, device, card):
+def phase_fastpitch_timing(torch, device, card, amp=False):
     """The FastPitch train step at the ``bench.py`` shape (16 × 128 tokens ×
-    768 mel frames, random batch, full width, dropout on, f32, TF32 off): wall
-    ms (median of 5 synchronised steps) and mel frames/s, the profiler's busy
-    time and idle share, the top kernels, MAS's share and the host's kernel
-    launches per step."""
+    768 mel frames, random batch, full width, dropout on; f32 with TF32 off,
+    or bf16 with ``amp``): wall ms (median of 5 synchronised steps) and mel
+    frames/s, the profiler's busy time and idle share, the top kernels, MAS's
+    share and the host's kernel launches per step."""
     from neuraltexttospeech_torch.cli.fastpitch_train import make_loss_fn
     from neuraltexttospeech_torch.models.fastpitch import FastPitch, FastPitchConfig
     from neuraltexttospeech_torch.models.fastpitch_loss import FastPitchLossConfig
@@ -1004,7 +1162,8 @@ def phase_fastpitch_timing(torch, device, card):
     B, T_TEXT, T_MEL = 16, 128, 768
     torch.manual_seed(0)
     trainer = Trainer(make_loss_fn(FastPitchLossConfig(), 1), FastPitch(FastPitchConfig()),
-                      TrainerConfig(), device)
+                      TrainerConfig(), device, amp=amp)
+    mode = "bf16 (--amp)" if amp else "f32 (TF32 off)"
     batch = {k: torch.as_tensor(v, device=device) for k, v in fastpitch_batch(
         5, B, T_TEXT, T_MEL, 148, [T_TEXT] * B, [T_MEL] * B).items()}
     for _ in range(2):
@@ -1021,7 +1180,7 @@ def phase_fastpitch_timing(torch, device, card):
     if not all(np.isfinite(float(v)) for v in metrics.values()):
         raise RuntimeError(f"non-finite FastPitch metrics at the bench shape: {metrics}")
     wall = float(np.median(walls))
-    log(f"FastPitch train step f32 (TF32 off), full width, dropout on: batch {B} x {T_TEXT} "
+    log(f"FastPitch train step {mode}, full width, dropout on: batch {B} x {T_TEXT} "
         f"tokens x {T_MEL} frames: wall {wall * 1e3:.1f} ms (runs "
         f"{', '.join(f'{w * 1e3:.1f}' for w in walls)}; host done issuing after "
         f"{', '.join(f'{h * 1e3:.1f}' for h in hosts)}) = {B * T_MEL / wall:.0f} mel frames/s; "
@@ -1030,9 +1189,10 @@ def phase_fastpitch_timing(torch, device, card):
     mas = sum(ms for ms, name in device_breakdown.last if "mas_kernel" in name)
     launches = sum(count for name, (count, _) in device_breakdown.runtime.items()
                    if "LaunchKernel" in name)
-    log(f"  trace: card busy {busy:.2f} ms of {wall * 1e3:.2f} ms wall (kernel times sum to "
-        f"{device_breakdown.kernel_sum:.2f} ms), idle share {1 - busy / (wall * 1e3):.3f}, "
-        f"{device_breakdown.launches} device events, {launches} host kernel launches; MAS "
+    log(f"  trace ({mode}): card busy {busy:.2f} ms of {wall * 1e3:.2f} ms wall (kernel times "
+        f"sum to {device_breakdown.kernel_sum:.2f} ms), idle share "
+        f"{1 - busy / (wall * 1e3):.3f}, {device_breakdown.launches} device events, {launches} "
+        f"host kernel launches; MAS "
         f"{mas:.3f} ms ({mas / device_breakdown.kernel_sum:.1%} of kernel time); top: "
         + "; ".join(f"{ms:.2f} ms {name[:70]}" for ms, name in top))
     runtime = sorted(device_breakdown.runtime.items(), key=lambda kv: -kv[1][1])[:5]
@@ -1062,28 +1222,35 @@ def main():
         build_kernels()
         b1 = phase_kernels(torch, device, smi)
         b2 = phase_tap_dots(torch, device, smi)
+        b2_bf16 = phase_tap_dots(torch, device, smi, dtype="bf16")
         mas = phase_mas(torch, device, smi)
         serving = phase_serving(torch, device)
         train = phase_training(torch, device, smi)
+        train_bf16 = phase_training(torch, device, smi, amp=True)
+        phase_fine_tuning(torch, device, smi)
         fastpitch = phase_fastpitch_training(torch, device, smi)
-        # launches per step on the training paths (B1 and B2: the GAN step;
-        # MAS: the FastPitch step); serving's and dataset prep's B1 counts are
-        # checked in their phases
+        # launches per step on the training paths (B1 and B2: the GAN step,
+        # f32 and bf16; MAS: the FastPitch step); serving's and dataset
+        # prep's B1 counts are checked in their phases
         b1["launches"], b2["launches"] = train["b1_per_step"], train["b2_per_step"]
-        mas["launches"] = fastpitch["mas_per_step"]
-        log(f"B1 launches: serving path {serving}, GAN training path {train['b1']}, FastPitch "
-            f"dataset prep {fastpitch['b1_prep']}; MAS launches: FastPitch training "
-            f"{fastpitch['mas']}")
+        b2_bf16["launches"] = train_bf16["b2_per_step"]
+        mas["launches"] = fastpitch["f32"]["mas_per_step"]
+        log(f"B1 launches: serving path {serving}, GAN training path {train['b1']} (bf16 "
+            f"{train_bf16['b1']}), FastPitch dataset prep {fastpitch['b1_prep']}; B2 launches: "
+            f"GAN training f32 {train['b2']}, bf16 {train_bf16['b2']}; MAS launches: FastPitch "
+            f"training f32 {fastpitch['f32']['mas']}, bf16 {fastpitch['bf16']['mas']}")
         phase_reference(torch, device)
         phase_gan_reference(torch, device)
         phase_fastpitch_reference(torch, device)
         phase_timing(torch, device, smi)
         phase_train_timing(torch, train["trainer"], smi)
-        del train, fastpitch
+        phase_train_timing(torch, train_bf16["trainer"], smi)
+        del train, train_bf16, fastpitch
         phase_fastpitch_timing(torch, device, smi)
+        phase_fastpitch_timing(torch, device, smi, amp=True)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    print(json.dumps({"kernels": [b1, b2, mas]}))
+    print(json.dumps({"kernels": [b1, b2, b2_bf16, mas]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -26,6 +26,7 @@ import torch
 
 from ..data.filelist import save_wav
 from ..models.registry import load_checkpoint, load_frontend_config
+from ..nn.precision import amp_dtype, compute_dtype
 from ..text.processing import TextProcessing
 from ..utils.device import resolve_device
 from ..utils.serving import round_up, serving_sharding, text_batches
@@ -43,7 +44,7 @@ def parse_args(argv=None):
     p.add_argument("-o", "--output", required=True)
     p.add_argument("--hifigan-checkpoint", default=None)
     p.add_argument("--amp", action="store_true",
-                   help="bf16 autocast for model + vocoder (weights stay f32)")
+                   help="bf16 compute for model + vocoder (weights stay f32)")
     p.add_argument("-bs", "--batch-size", type=int, default=8,
                    help="utterances per device batch; inputs are length-sorted "
                         "and padded to 16-token text buckets")
@@ -76,8 +77,7 @@ def synthesize(fastpitch, generator, encoded: Sequence[np.ndarray], *,
     """
     put, _, batch_size = serving_sharding(batch_size, device)
     for idxs, text, lens in text_batches(encoded, batch_size, text_bucket):
-        with torch.inference_mode(), torch.autocast(device.type, torch.bfloat16,
-                                                    enabled=amp):
+        with torch.inference_mode(), compute_dtype(amp_dtype(amp)):
             mel, dec_lens = fastpitch.infer(put(text), put(lens), pace=pace,
                                             max_mel_len=max_mel_len)[:2]
         mel = mel.float()  # the host boundary is f32 whatever the compute type

@@ -5,7 +5,9 @@ Port of ``fastpitch/train.py``: the prepared features (``fastpitch_prepare_datas
 its CUDA kernel) and ``fastpitch_loss`` → the generic one-card
 :class:`~..train.harness.Trainer` with the optimizer of ``--optimizer``
 (clipping, accumulation, the noam schedule). f32 with TF32 off for cuBLAS
-and cuDNN. By default the attention prior is computed on the device from the
+and cuDNN, or with ``--amp`` in bf16 (f32 parameters, gradients and
+optimizer state; the aligner's distances, MAS and the loss targets in f32,
+as the JAX CLI's ``--amp``). By default the attention prior is computed on the device from the
 lengths; ``--host-prior`` ships the scipy prior with each batch.
 
 Checkpoints go to ``<output>/checkpoints/<step>/``: the train state
@@ -60,7 +62,8 @@ def parse_args(argv=None):
     tr.add_argument("--epochs-per-checkpoint", type=int, default=1)
     tr.add_argument("--resume", action="store_true",
                     help="resume from the latest checkpoint in --output")
-    tr.add_argument("--amp", action="store_true", help="bf16 training (not ported yet)")
+    tr.add_argument("--amp", action="store_true",
+                    help="bf16 compute (parameters and optimizer state stay f32)")
     tr.add_argument("--steps-per-epoch", type=int, default=None,
                     help="cap batches per epoch (smoke runs)")
     tr.add_argument("--device", default=None,
@@ -115,8 +118,6 @@ def main(argv=None):
     """Train; returns ``{"trainer", "metrics" (the last epoch's means, as
     floats), "steps" (run by this call), "seconds"}``."""
     args = parse_args(argv)
-    if args.amp:
-        raise NotImplementedError("--amp (bf16 training) is not ported yet")
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -154,10 +155,11 @@ def main(argv=None):
         loss_fn, model,
         TrainerConfig(optimizer=opt_cfg, seed=args.seed,
                       checkpoint_dir=str(out / "checkpoints")),
-        device, serving=lambda: ("FastPitch", config, model.state_dict(), frontend))
+        device, serving=lambda: ("FastPitch", config, model.state_dict(), frontend),
+        amp=args.amp)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"FastPitch: {n_params / 1e6:.1f}M params, {len(train_ds)} train items, "
-          f"device {device}")
+          f"{'bf16' if args.amp else 'f32'}, device {device}")
 
     position = (0, 0)  # (epoch, batches done in it)
     if args.resume:

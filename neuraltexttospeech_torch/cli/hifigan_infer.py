@@ -26,6 +26,7 @@ from ..audio.stft import STFTConfig, mel_spectrogram
 from ..data.filelist import load_filepaths_and_text, load_wav, save_wav
 from ..models.hifigan import HiFiGANConfig
 from ..models.registry import load_checkpoint
+from ..nn.precision import amp_dtype, compute_dtype
 from ..utils.device import resolve_device
 
 
@@ -41,7 +42,7 @@ def parse_args(argv=None):
                         "for copy-synthesis")
     p.add_argument("-o", "--output", required=True)
     p.add_argument("--amp", action="store_true",
-                   help="bf16 autocast for the generator (weights stay f32)")
+                   help="bf16 compute for the generator (weights stay f32)")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' runs the plain path)")
     return p.parse_args(argv)
@@ -84,9 +85,9 @@ def iter_mels(input_path, config: HiFiGANConfig, device: torch.device):
 
 
 def vocode(generator, mel: torch.Tensor, amp: bool = False) -> torch.Tensor:
-    """mel [B, T, num_mels] → f32 audio [B, T·hop]."""
-    with torch.inference_mode(), torch.autocast(mel.device.type, torch.bfloat16,
-                                                enabled=amp):
+    """mel [B, T, num_mels] → f32 audio [B, T·hop]; ``amp`` runs the
+    generator in bf16 (``nn/precision.py``)."""
+    with torch.inference_mode(), compute_dtype(amp_dtype(amp)):
         return generator(mel)[..., 0].float()
 
 

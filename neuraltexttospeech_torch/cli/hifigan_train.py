@@ -3,10 +3,14 @@
 Port of ``hifigan/train.py``: a config (v1/v2/v3 or a reference
 ``config_v*.json``) → ``VocoderDataset`` crops → the 3-optimizer GAN step of
 ``models/hifigan_gan.py`` on one card, f32 with TF32 off for cuBLAS and
-cuDNN. The MSD's grouped convs run through kernel B2 unless the config's
-``fast_grouped_convs`` says ``"stock"``/False; the mels run through kernel
-B1. By default a batch carries only the audio crops and the step computes
-both mels (``--host-mels`` computes them on the host instead).
+cuDNN, or with ``--amp`` in bf16 (f32 parameters, gradients and Adam
+state, as the JAX CLI's ``--amp``). The MSD's grouped convs run through
+kernel B2 (its f32 or bf16 form) unless the config's ``fast_grouped_convs``
+says ``"stock"``/False; the mels run through kernel B1, in f32. By default a
+batch carries only the audio crops and the step computes both mels
+(``--host-mels`` computes them on the host instead). With
+``--fine-tuning-mel-dir`` the generator's input mels are an acoustic
+model's ``<utt>_mel.npy`` files, cropped with the audio aligned to them.
 
 Checkpoints go to ``<output>/checkpoints/<step>/``: the train state
 (``train_state.pt``: step, G/MPD/MSD, spectral-norm buffers, the three Adam
@@ -54,9 +58,10 @@ def parse_args(argv=None):
     p.add_argument("--host-mels", action="store_true",
                    help="compute the input/loss mels on the host in collation instead "
                         "of inside the step")
-    p.add_argument("--amp", action="store_true", help="bf16 training (not ported yet)")
+    p.add_argument("--amp", action="store_true",
+                   help="bf16 compute (parameters and optimizer state stay f32)")
     p.add_argument("--fine-tuning-mel-dir", default=None,
-                   help="train on acoustic-model mels (not ported yet)")
+                   help="dir of <utt>_mel.npy acoustic-model mels to train on")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' runs the plain twins)")
     return p.parse_args(argv)
@@ -83,10 +88,6 @@ def main(argv=None):
     """Train; returns ``{"trainer", "metrics" (last step's, as floats),
     "steps" (run by this call), "seconds"}``."""
     args = parse_args(argv)
-    if args.amp:
-        raise NotImplementedError("--amp (bf16 training) is not ported yet")
-    if args.fine_tuning_mel_dir is not None:
-        raise NotImplementedError("--fine-tuning-mel-dir is not ported yet")
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -99,12 +100,14 @@ def main(argv=None):
         args.training_files, segment_size=config.segment_size, n_fft=config.n_fft,
         hop_size=config.hop_size, win_size=config.win_size, num_mels=config.num_mels,
         sampling_rate=config.sampling_rate, fmin=config.fmin, fmax=config.fmax,
-        fmax_for_loss=config.fmax_for_loss, seed=config.seed)
+        fmax_for_loss=config.fmax_for_loss, fine_tuning_mel_dir=args.fine_tuning_mel_dir,
+        seed=config.seed)
     steps_per_epoch = args.steps_per_epoch or max(len(ds) // batch_size, 1)
-    trainer = HiFiGANTrainer(config, device, steps_per_epoch=steps_per_epoch)
+    trainer = HiFiGANTrainer(config, device, steps_per_epoch=steps_per_epoch, amp=args.amp)
     n_g = sum(p.numel() for p in trainer.gen.parameters())
     print(f"HiFi-GAN {args.config}: generator {n_g / 1e6:.1f}M params, {len(ds)} clips, "
-          f"batch {batch_size}, MSD group impl {trainer.msd_group_impl}, device {device}")
+          f"batch {batch_size}, MSD group impl {trainer.msd_group_impl}, "
+          f"{'bf16' if args.amp else 'f32'}, device {device}")
 
     ckpt = Checkpointer(out / "checkpoints", save_interval_steps=args.checkpoint_every_steps)
     # where the data order stands: (epoch, batches done in it), crop RNG state

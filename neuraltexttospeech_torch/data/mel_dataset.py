@@ -7,12 +7,18 @@ seeds, so a seed gives the same crops as the JAX dataset. A batch holds
 the crops, the generator-input mel (fmin..fmax) and the loss-target mel
 (``fmax_for_loss``), computed on the host through the port's
 ``mel_spectrogram`` with HiFi-GAN's centered reflect padding; with
-``audio_only=True`` only the crops (the GAN step computes both mels). The
-fine-tuning mode (acoustic-model mels) is not ported yet.
+``audio_only=True`` only the crops (the GAN step computes both mels).
+
+In fine-tuning mode (``fine_tuning_mel_dir``, ``mel_dataset.py:83-103,
+143-151`` of the JAX package) the generator's input mel is an acoustic
+model's ``<utt>_mel.npy``, cropped at a random frame, and the audio crop is
+aligned to it; the loss mel is the audio crop's, through the fused log-mel
+(``ops/mel_kernel.py``: its plain twin on these host tensors).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Iterator, Optional
 
 import numpy as np
@@ -20,6 +26,7 @@ import torch
 from torch.nn import functional as F
 
 from ..audio.stft import STFTConfig, mel_spectrogram
+from ..ops.mel_kernel import fused_mel_spectrogram
 from .filelist import load_filepaths_and_text, load_wav
 
 __all__ = ["VocoderDataset"]
@@ -42,8 +49,7 @@ class VocoderDataset:
         fine_tuning_mel_dir: Optional[str] = None,
         seed: int = 1234,
     ):
-        if fine_tuning_mel_dir is not None:
-            raise NotImplementedError("fine-tuning on acoustic-model mels is not ported yet")
+        self.fine_tuning_mel_dir = fine_tuning_mel_dir
         self.files = [f[0] for f in load_filepaths_and_text(filelist_path)]
         self.segment_size = segment_size
         self.hop_size = hop_size
@@ -69,6 +75,32 @@ class VocoderDataset:
     def __getitem__(self, index: int) -> np.ndarray:
         audio, _ = load_wav(self.files[index], self.sampling_rate)
         return self._segment(audio)
+
+    def _fine_tuning_item(self, index: int):
+        """(audio crop, mel crop): ``segment_size // hop`` frames of the
+        acoustic model's mel from a random start (zero-padded when shorter),
+        and the audio from that frame's first sample."""
+        audio, _ = load_wav(self.files[index], self.sampling_rate)
+        base = os.path.basename(self.files[index]).replace(".wav", "_mel.npy")
+        mel = np.load(os.path.join(self.fine_tuning_mel_dir, base))
+        frames = self.segment_size // self.hop_size
+        if mel.shape[0] >= frames:
+            start = int(self.rng.integers(0, mel.shape[0] - frames + 1))
+        else:
+            mel = np.pad(mel, ((0, frames - mel.shape[0]), (0, 0)))
+            start = 0
+        a0 = start * self.hop_size
+        seg = audio[a0: a0 + self.segment_size]
+        if len(seg) < self.segment_size:
+            seg = np.pad(seg, (0, self.segment_size - len(seg)))
+        return seg.astype(np.float32), mel[start: start + frames].astype(np.float32)
+
+    def _loss_mels(self, audio_b: np.ndarray) -> np.ndarray:
+        """The loss-target mels of a batch of crops, by the fused log-mel."""
+        pad = (self.mel_loss_cfg.filter_length - self.hop_size) // 2
+        x = F.pad(torch.as_tensor(audio_b, dtype=torch.float32)[:, None], (pad, pad),
+                  mode="reflect")[:, 0]
+        return fused_mel_spectrogram(x, self.mel_loss_cfg).numpy()
 
     def _mels(self, audio_b: np.ndarray):
         """Host mels of a batch of crops: generator input and loss target."""
@@ -97,9 +129,16 @@ class VocoderDataset:
     def batches(self, batch_size: int, *, seed: int = 0, max_batches: Optional[int] = None,
                 audio_only: bool = False, skip: int = 0) -> Iterator[Dict[str, np.ndarray]]:
         """Yield ``{"audio": [B, S, 1]}`` (and ``mel``, ``mel_loss`` unless
-        ``audio_only``) as float32 numpy arrays. ``skip`` passes over the
-        first batches of the epoch without drawing their crops (resume)."""
+        ``audio_only``; always in fine-tuning mode) as float32 numpy arrays.
+        ``skip`` passes over the first batches of the epoch without drawing
+        their crops (resume)."""
         for idxs in self.batch_indices(batch_size, seed=seed, max_batches=max_batches)[skip:]:
+            if self.fine_tuning_mel_dir is not None:
+                pairs = [self._fine_tuning_item(j) for j in idxs]
+                audio = np.stack([p[0] for p in pairs])
+                yield {"audio": audio[..., None], "mel": np.stack([p[1] for p in pairs]),
+                       "mel_loss": self._loss_mels(audio)}
+                continue
             audio = np.stack([self[j] for j in idxs]).astype(np.float32)
             batch = {"audio": audio[..., None]}
             if not audio_only:

@@ -24,7 +24,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ..nn.layers import ConvNorm, ConvReLUNorm
+from ..nn.layers import ConvNorm, ConvReLUNorm, Linear
 from ..nn.transformer import FFTransformer
 from ..ops.mas import maximum_path
 from ..utils.masking import mask_from_lens
@@ -148,7 +148,7 @@ class TemporalPredictor(nn.Module):
             ConvReLUNorm(in_channels if i == 0 else filter_size, filter_size, kernel_size,
                          dropout)
             for i in range(n_layers))
-        self.fc = nn.Linear(filter_size, n_predictions)
+        self.fc = Linear(filter_size, n_predictions)
 
     def forward(self, enc_out: torch.Tensor, enc_mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -211,7 +211,7 @@ class FastPitch(nn.Module):
             n_emb=c.n_symbols, padding_idx=c.padding_idx, dropout=c.p_in_fft_dropout,
             dropatt=c.p_in_fft_dropatt, dropemb=c.p_in_fft_dropemb)
         if c.n_speakers > 1:
-            self.speaker_emb = nn.Embedding(c.n_speakers, d)
+            self.speaker_emb = nn.Embedding(c.n_speakers, d)  # f32 in bf16 too, as in JAX
         self.duration_predictor = TemporalPredictor(
             d, c.dur_predictor_filter_size, c.dur_predictor_kernel_size,
             n_layers=c.dur_predictor_n_layers, dropout=c.p_dur_predictor_dropout)
@@ -233,7 +233,7 @@ class FastPitch(nn.Module):
                 d, c.energy_predictor_filter_size, c.energy_predictor_kernel_size,
                 n_layers=c.energy_predictor_n_layers, dropout=c.p_energy_predictor_dropout)
             self.energy_emb = ConvNorm(1, d, c.energy_embedding_kernel_size)
-        self.proj = nn.Linear(d, c.n_mel_channels)
+        self.proj = Linear(d, c.n_mel_channels)
         self.attention = ConvAttention(c.n_mel_channels, d, c.n_attn_channels)
 
     def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):

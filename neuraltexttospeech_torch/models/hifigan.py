@@ -19,6 +19,11 @@ stay ``[B, C, T]`` (or the gouter layout) so no conv pays a transpose.
 Feature maps are returned in whatever layout the layer produced (the MSD's
 folded layers in ``[g, B, Q, Po*co]``, the MPD's as ``[B*period, C, T/period]``):
 :func:`feature_loss` does not depend on the order of elements.
+
+Every conv computes in the compute dtype of ``nn/precision.py`` (bf16 under
+``--amp``, as the JAX modules' ``dtype``), on f32 weight-normed or
+spectral-normed weights; activations, feature maps and scores then come out
+in that type, and the losses keep it, as JAX's do.
 """
 
 from __future__ import annotations
@@ -31,8 +36,9 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..nn import fastconv
-from ..nn.layers import same_padding
+from ..nn.layers import Conv1d, ConvTranspose1d, same_padding
 from ..nn.norms import SpectralNorm
+from ..nn.precision import promote
 from ..nn.norms import weight_norm as _weight_norm
 
 __all__ = ["HiFiGANConfig", "Generator", "ResBlock1", "ResBlock2",
@@ -117,8 +123,8 @@ def transpose_padding(kernel_size: int, stride: int) -> int:
 
 
 def _conv(channels_in: int, channels_out: int, kernel_size: int,
-          dilation: int = 1) -> nn.Conv1d:
-    return nn.Conv1d(channels_in, channels_out, kernel_size, dilation=dilation,
+          dilation: int = 1) -> Conv1d:
+    return Conv1d(channels_in, channels_out, kernel_size, dilation=dilation,
                      padding=same_padding(kernel_size, dilation))
 
 
@@ -175,7 +181,7 @@ class Generator(nn.Module):
         ch = c.upsample_initial_channel
         for i, (u, k) in enumerate(zip(c.upsample_rates, c.upsample_kernel_sizes)):
             ch_out = c.upsample_initial_channel // (2 ** (i + 1))
-            self.ups.append(nn.ConvTranspose1d(ch, ch_out, k, stride=u,
+            self.ups.append(ConvTranspose1d(ch, ch_out, k, stride=u,
                                                padding=transpose_padding(k, u)))
             ch = ch_out
             for kr, dil in zip(c.resblock_kernel_sizes, c.resblock_dilation_sizes):
@@ -249,9 +255,9 @@ class DiscriminatorP(nn.Module):
         self.period = period
         chans = (1, 32, 128, 512, 1024, 1024)
         self.convs = nn.ModuleList(
-            _weight_norm(nn.Conv1d(ci, co, self.KERNEL_SIZE, stride=st))
+            _weight_norm(Conv1d(ci, co, self.KERNEL_SIZE, stride=st))
             for ci, co, st in zip(chans[:-1], chans[1:], self.STRIDES))
-        self.conv_post = _weight_norm(nn.Conv1d(1024, 1, 3))
+        self.conv_post = _weight_norm(Conv1d(1024, 1, 3))
 
     def forward(self, x: torch.Tensor):
         x = x[..., 0]
@@ -392,13 +398,13 @@ class DiscriminatorS(nn.Module):
                 if x.ndim == 4:
                     x = fastconv.unfold_gouter(x, cur_po, cur_g).transpose(1, 2)
                     cur_po, cur_g = 1, 1
-                x = F.conv1d(same_pad(x, k, s), w, conv.bias, stride=s, groups=g)
+                x = F.conv1d(*promote(same_pad(x, k, s), w, conv.bias), stride=s, groups=g)
             x = F.leaky_relu(x, LRELU_SLOPE)
             fmap.append(x)
         if x.ndim == 4:
             x = fastconv.unfold_gouter(x, cur_po, cur_g).transpose(1, 2)
         w = self._weight(len(self.convs), self.conv_post, update_stats)
-        x = F.conv1d(same_pad(x, 3), w, self.conv_post.bias)
+        x = F.conv1d(*promote(same_pad(x, 3), w, self.conv_post.bias))
         fmap.append(x)
         return x.reshape(batch, -1), fmap
 

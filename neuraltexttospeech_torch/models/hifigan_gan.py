@@ -17,6 +17,11 @@ algorithm). The real pass is the same in both lanes (the same parameters and
 the same starting ``u``), so it runs once and the generator lane reads its
 feature maps detached. The mels run through kernel B1 (``ops/mel_kernel.py``)
 on the card, with its analytic backward for the mel loss.
+
+``amp=True`` is the JAX package's ``--amp`` (``dtype=bf16``): both lanes run
+their convs in bf16 (``nn/precision.py``; the MSD's through B2's bf16 form),
+the generated audio is cast to f32 before its log-mel (B1 stays f32, as in
+JAX), and the three Adams step the f32 parameters with f32 gradients.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from torch.nn import functional as F
 
 from ..audio.stft import STFTConfig
 from ..nn.norms import folded_state_dict
+from ..nn.precision import amp_dtype, compute_dtype
 from ..ops.mel_kernel import fused_mel_spectrogram
 from .hifigan import (
     Generator, HiFiGANConfig, MultiPeriodDiscriminator, MultiScaleDiscriminator,
@@ -58,9 +64,9 @@ def mel_for_loss(audio: torch.Tensor, cfg: STFTConfig) -> torch.Tensor:
     """[B, S] audio → [B, S/hop, n_mel] log-mel with HiFi-GAN's centered
     reflect padding (``(n_fft - hop) / 2`` each side), through the
     differentiable fused log-mel (kernel B1 on the card, its twin on the
-    CPU; the analytic backward on both)."""
+    CPU; the analytic backward on both), in f32 whatever the audio's type."""
     pad = (cfg.filter_length - cfg.frame_step) // 2
-    audio = F.pad(audio[:, None], (pad, pad), mode="reflect")[:, 0]
+    audio = F.pad(audio.float()[:, None], (pad, pad), mode="reflect")[:, 0]
     return fused_mel_spectrogram(audio, cfg)
 
 
@@ -88,12 +94,15 @@ class HiFiGANTrainer:
     """The GAN train state (G with weight norm, MPD, MSD with its
     spectral-norm buffers, three Adams, the step) and :meth:`train_step`.
 
-    The learning rate follows :func:`learning_rate` at the pre-update step."""
+    The learning rate follows :func:`learning_rate` at the pre-update step;
+    ``amp`` runs the step in bf16 (the module docstring)."""
 
-    def __init__(self, config: HiFiGANConfig, device, steps_per_epoch: int = 1000):
+    def __init__(self, config: HiFiGANConfig, device, steps_per_epoch: int = 1000,
+                 amp: bool = False):
         self.config = config
         self.device = torch.device(device)
         self.steps_per_epoch = steps_per_epoch
+        self.amp = amp
         self.msd_group_impl = resolve_msd_group_impl(config.fast_grouped_convs)
         gen = torch.Generator().manual_seed(config.seed)
         self.gen = init_params_(Generator(config, weight_norm=True), gen).to(self.device)
@@ -110,7 +119,19 @@ class HiFiGANTrainer:
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """One GAN step on ``batch``: ``audio [B, S, 1]`` and optionally
         ``mel`` / ``mel_loss`` [B, S/hop, n_mel] (an audio-only batch computes
-        both in the step). Returns the metrics as 0-d tensors on the device."""
+        both in the step). Returns the metrics as 0-d f32 tensors on the
+        device."""
+        with compute_dtype(amp_dtype(self.amp)):
+            metrics = self._losses_and_grads(batch)
+        lr = learning_rate(self.config, self.step, self.steps_per_epoch)  # pre-update step
+        for opt in self.optimizers.values():
+            for group in opt.param_groups:
+                group["lr"] = lr
+            opt.step()
+        self.step += 1
+        return {k: v.detach().float() for k, v in metrics.items()}
+
+    def _losses_and_grads(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         y = batch["audio"]
         if "mel" in batch:
             mel, mel_target = batch["mel"], batch["mel_loss"]
@@ -156,17 +177,9 @@ class HiFiGANTrainer:
         g_loss = loss_adv + loss_fm + loss_mel
         # the lanes share no parameter, so one backward gives both lanes' grads
         (g_loss + d_loss).backward()
-
-        lr = learning_rate(self.config, self.step, self.steps_per_epoch)  # pre-update step
-        for opt in self.optimizers.values():
-            for group in opt.param_groups:
-                group["lr"] = lr
-            opt.step()
-        self.step += 1
-        return {"gen_loss": g_loss.detach(), "mel_l1_x45": loss_mel.detach(),
-                "fm_loss": loss_fm.detach(), "adv_loss": loss_adv.detach(),
-                "disc_loss": d_loss.detach(), "disc_mpd": loss_mpd.detach(),
-                "disc_msd": loss_msd.detach()}
+        return {"gen_loss": g_loss, "mel_l1_x45": loss_mel, "fm_loss": loss_fm,
+                "adv_loss": loss_adv, "disc_loss": d_loss, "disc_mpd": loss_mpd,
+                "disc_msd": loss_msd}
 
     # ------------------------------------------------------------ state
     def state_dict(self) -> dict:

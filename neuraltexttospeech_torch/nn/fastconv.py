@@ -24,6 +24,7 @@ import torch
 from torch.nn import functional as F
 
 from ..ops.gouter_kernel import gouter_tap_dots_kernel
+from .precision import promote
 
 __all__ = ["gouter_tap_dots", "fold_gouter", "unfold_gouter", "regroup_gouter",
            "plan_folded", "gouter_weights", "gouter_conv"]
@@ -33,7 +34,9 @@ class _TapDots(torch.autograd.Function):
     """``sum_mf xp[..., mf*s + t, :] @ wf[mf]`` with the backward of
     ``fastconv.py:91-108``: dx is the same tap-window sum (the kernel on the
     card) over ``dy`` zero-padded by ``(kf-1)*s`` with the weights flipped
-    and transposed (``flip_t``); dw is one einsum over the kf windows."""
+    and transposed (``flip_t``); dw is one einsum over the kf windows. All of
+    it runs in the operands' type, f32 or bf16: ``dy`` comes in the output's
+    type, and nothing upcasts."""
 
     @staticmethod
     def forward(ctx, xp, wf, s: int, q: int):
@@ -64,8 +67,10 @@ class _TapDots(torch.autograd.Function):
 
 def gouter_tap_dots(xp: torch.Tensor, wf: torch.Tensor, s: int, q: int) -> torch.Tensor:
     """Differentiable tap-window sum: xp [g, B, Qp, X], wf [kf, g, X, Y] ->
-    [g, B, q, Y]. Forward and dx run kernel B2 on a CUDA tensor and its plain
-    twin on a CPU tensor."""
+    [g, B, q, Y], both f32 or both bf16. Forward and dx run kernel B2 on a
+    CUDA tensor and its plain twin on a CPU tensor."""
+    if xp.dtype != wf.dtype:
+        raise ValueError(f"xp and wf must share a dtype, got {xp.dtype} and {wf.dtype}")
     return _TapDots.apply(xp, wf, s, q)
 
 
@@ -163,13 +168,16 @@ def gouter_conv(x: torch.Tensor, weight: torch.Tensor, bias, *, groups: int,
     """Grouped, undilated SAME conv (flax padding) on gouter input ``[g, B, Q, Pi*ci]``
     -> ``[g, B, Q, Po*co]`` with ``Po = Pi / stride``: pad by
     ``(-m_min, m_max)``, tap-window sum, bias. ``weight`` is the ``Conv1d``
-    weight ``[g*co, ci, k]`` and ``bias`` is ``[g*co]`` or None."""
+    weight ``[g*co, ci, k]`` and ``bias`` is ``[g*co]`` or None. Input,
+    weight and bias are first cast to the compute dtype (``nn/precision.py``),
+    as flax's ``promote_dtype`` does, so the kernel sees one dtype."""
     if fold % stride:
         raise NotImplementedError(f"gouter path: fold ({fold}) must be divisible "
                                   f"by stride ({stride})")
     g = groups
     if x.ndim != 4 or x.shape[0] != g:
         raise ValueError(f"gouter input must be [g={g}, B, Q, Pi*ci], got {tuple(x.shape)}")
+    x, weight, bias = promote(x, weight, bias)
     k = weight.shape[-1]
     po = fold // stride
     _, m_min, m_max, s = plan_folded(k, stride, 1, fold, po)

@@ -10,6 +10,13 @@ only when its call is given a ``torch.Generator`` (the trainer's per-step
 stream), and never otherwise, whatever the module's train/eval mode. The
 masks are drawn with ``torch.rand`` from that generator (``F.dropout``
 takes none).
+
+:class:`Conv1d`, :class:`ConvTranspose1d`, :class:`Linear`,
+:class:`Embedding` and :class:`LayerNorm` are PyTorch's modules (the same
+parameters and state-dict keys) computing in the compute dtype of
+``nn/precision.py`` as flax's ``dtype=`` does: the first four cast their
+input and parameters to it, LayerNorm normalises in f32 and casts its
+output. Without a compute dtype they are PyTorch's modules unchanged.
 """
 
 from __future__ import annotations
@@ -18,8 +25,12 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
-__all__ = ["ConvNorm", "ConvReLUNorm", "LN_EPS", "same_padding", "dropout"]
+from .precision import current, promote
+
+__all__ = ["Conv1d", "ConvTranspose1d", "Linear", "Embedding", "LayerNorm", "ConvNorm",
+           "ConvReLUNorm", "LN_EPS", "same_padding", "dropout"]
 
 LN_EPS = 1e-3
 
@@ -45,7 +56,50 @@ def dropout(x: torch.Tensor, p: float,
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-class ConvNorm(nn.Conv1d):
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` in the compute dtype (flax ``Conv(dtype=)``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(*promote(x, self.weight, self.bias))
+
+
+class ConvTranspose1d(nn.ConvTranspose1d):
+    """``nn.ConvTranspose1d`` in the compute dtype (no ``output_size``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, w, b = promote(x, self.weight, self.bias)
+        return F.conv_transpose1d(x, w, b, self.stride, self.padding, self.output_padding,
+                                  self.groups, self.dilation)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` in the compute dtype (flax ``Dense(dtype=)``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(*promote(x, self.weight, self.bias))
+
+
+class Embedding(nn.Embedding):
+    """``nn.Embedding`` whose rows come out in the compute dtype (flax
+    ``Embed(dtype=)``)."""
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        (weight,) = promote(self.weight)
+        return F.embedding(ids, weight, self.padding_idx, self.max_norm, self.norm_type,
+                           self.scale_grad_by_freq, self.sparse)
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``LayerNorm(dtype=)``: statistics, normalisation, scale and bias
+    in f32, the output cast to the compute dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+        dtype = current()
+        return y if dtype is None else y.to(dtype)
+
+
+class ConvNorm(Conv1d):
     """1-D conv with SAME padding over ``[B, T, C]`` activations."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 1,
@@ -64,7 +118,7 @@ class ConvReLUNorm(nn.Module):
                  dropout: float = 0.0):
         super().__init__()
         self.conv = ConvNorm(in_channels, out_channels, kernel_size)
-        self.norm = nn.LayerNorm(out_channels, eps=LN_EPS)
+        self.norm = LayerNorm(out_channels, eps=LN_EPS)
         self.p_dropout = dropout
 
     def forward(self, x: torch.Tensor,

@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from ..utils.masking import mask_from_lens
-from .layers import LN_EPS, ConvNorm, dropout
+from .layers import LN_EPS, ConvNorm, Embedding, LayerNorm, Linear, dropout
 
 __all__ = [
     "positional_embedding",
@@ -58,9 +58,9 @@ class MultiHeadAttn(nn.Module):
         super().__init__()
         self.n_head, self.d_head = n_head, d_head
         self.p_dropout, self.p_dropatt = dropout, dropatt
-        self.qkv = nn.Linear(d_model, 3 * n_head * d_head)
-        self.o = nn.Linear(n_head * d_head, d_model, bias=False)
-        self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.qkv = Linear(d_model, 3 * n_head * d_head)
+        self.o = Linear(n_head * d_head, d_model, bias=False)
+        self.layer_norm = LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, x: torch.Tensor, attn_mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -69,7 +69,7 @@ class MultiHeadAttn(nn.Module):
         qkv = self.qkv(x).view(B, T, 3, self.n_head, self.d_head)
         q, k, v = qkv.unbind(2)  # [B, T, H, D]
         score = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / np.sqrt(self.d_head))
-        bias = torch.where(attn_mask[:, None, None, :], 0.0, _NEG)
+        bias = torch.where(attn_mask[:, None, None, :], 0.0, _NEG).to(score.dtype)
         prob = dropout(torch.softmax(score + bias, dim=-1), self.p_dropatt, generator)
         out = torch.einsum("bhqk,bkhd->bqhd", prob.to(v.dtype), v)
         out = self.o(out.reshape(B, T, self.n_head * self.d_head))
@@ -84,7 +84,7 @@ class PositionwiseConvFF(nn.Module):
         super().__init__()
         self.conv1 = ConvNorm(d_model, d_inner, kernel_size)
         self.conv2 = ConvNorm(d_inner, d_model, kernel_size)
-        self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.layer_norm = LayerNorm(d_model, eps=LN_EPS)
         self.p_dropout = dropout
 
     def forward(self, x: torch.Tensor,
@@ -123,7 +123,7 @@ class FFTransformer(nn.Module):
         self.embed_input = embed_input
         self.padding_idx = padding_idx
         if embed_input:
-            self.word_emb = nn.Embedding(n_emb, d_model)
+            self.word_emb = Embedding(n_emb, d_model)
         self.layers = nn.ModuleList(
             FFTransformerLayer(n_head, d_model, d_head, d_inner, kernel_size, dropout, dropatt)
             for _ in range(n_layer))
@@ -139,8 +139,8 @@ class FFTransformer(nn.Module):
                 raise ValueError("seq_lens is required when embed_input=False")
             mask = mask_from_lens(seq_lens, x.shape[1])
 
-        pos = positional_embedding(x.shape[1], self.d_model, x.device)
-        out = x + pos[None] * mask[..., None].to(pos.dtype)
+        pos = positional_embedding(x.shape[1], self.d_model, x.device).to(x.dtype)
+        out = x + pos[None] * mask[..., None].to(x.dtype)
         if conditioning is not None:
             out = out + conditioning
         out = dropout(out, self.p_dropemb, generator)

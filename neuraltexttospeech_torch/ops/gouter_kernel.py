@@ -6,19 +6,22 @@ grouped, strided conv (``nn/fastconv.py``) computes
 
     y[g, b, t, :] = sum_mf xp[g, b, mf*s + t, :] @ wf[mf, g, :, :]
 
-for ``t < q``, with xp ``[g, B, Qp, X]`` padded and wf ``[kf, g, X, Y]``; with
+for ``t < q``, with xp ``[g, B, Qp, X]`` padded and wf ``[kf, g, X, Y]``, both
+float32 or both bfloat16; every product is summed in f32 and y, in the
+operands' type, is rounded once, as the Pallas body (:105-112) does. With
 ``flip_t`` the weights enter flipped over the taps and transposed
 (``wf[kf-1-mf, g].T``), the form of the backward's dx.
 ``csrc/gouter_kernel.cu`` computes it on the tensor cores, f32-accurate by
-3xTF32 (its design and bound are in that file): a prologue kernel writes the
-weights K-major, split into TF32 hi and lo parts and swizzled
+3xTF32 for f32 operands and by one bf16 product per step for bf16 ones (its
+design and bound are in that file): a prologue kernel writes the weights
+K-major and swizzled, f32 split into TF32 hi and lo parts
 (:func:`split_weights`; twin :func:`split_weights_reference`), then the main
-kernel runs at the tile :func:`plan_tiles` picks. :func:`gouter_tap_dots_reference`
-is the per-tap ``torch.matmul`` loop of ``fastconv.py:62-67``;
-:func:`gouter_tap_dots_kernel` takes it only for a CPU tensor. For a CUDA
-tensor it launches the kernels or raises: they take every shape the v1 MSD
-produces (X and Y of 128, 256 or 512, g of 4 or 16, kf up to 21, any q), and
-nothing else.
+kernel runs at the tile :func:`plan_tiles` picks.
+:func:`gouter_tap_dots_reference` is the per-tap ``torch.matmul`` loop of
+``fastconv.py:62-67`` in f32; :func:`gouter_tap_dots_kernel` takes it only
+for a CPU tensor. For a CUDA tensor it launches the kernels or raises: they
+take every shape the v1 MSD produces (X and Y of 128, 256 or 512, g of 4 or
+16, kf up to 21, any q), and nothing else.
 """
 
 from __future__ import annotations
@@ -31,28 +34,47 @@ import torch
 from . import _build
 
 __all__ = ["gouter_tap_dots_kernel", "gouter_tap_dots_reference", "split_weights",
-           "split_weights_reference", "plan_tiles", "tf32_round", "SOURCE"]
+           "split_weights_reference", "plan_tiles", "k_block", "tf32_round",
+           "excess_over_one_bf16_ulp", "SOURCE"]
 
 SOURCE = "gouter_kernel.cu"
 _WIDTHS = (128, 256, 512)  # X and Y the kernel takes
 _GROUPS = (4, 16)
 _MAX_TAPS = 21
-_K_BLOCK = 32  # K per pipeline stage: one 128-byte row
+_DTYPES = (torch.float32, torch.bfloat16)
 _TILES = ((2, 128), (1, 64))  # (warpgroups of 64 rows, columns): 128x128, then 64x64
+
+
+def k_block(dtype: torch.dtype) -> int:
+    """K per pipeline stage, one 128-byte row: 32 f32 or 64 bf16."""
+    return 128 // dtype.itemsize
 
 
 def gouter_tap_dots_reference(xp: torch.Tensor, wf: torch.Tensor, s: int, q: int,
                               flip_t: bool = False) -> torch.Tensor:
     """Plain twin: ``sum_mf xp[:, :, mf*s : mf*s + q] @ w[mf]`` as one
-    group-batched ``torch.matmul`` per tap, with ``w = wf`` or, for
-    ``flip_t``, ``flip(wf, taps).transpose(-1, -2)``. [g, B, q, Y]."""
+    group-batched f32 ``torch.matmul`` per tap, with ``w = wf`` or, for
+    ``flip_t``, ``flip(wf, taps).transpose(-1, -2)``; the sum is rounded
+    once to ``xp.dtype`` (bf16 products are exact in f32). [g, B, q, Y]."""
     if flip_t:
         wf = torch.flip(wf, (0,)).transpose(-1, -2)
     y = None
     for mf in range(wf.shape[0]):
-        t = torch.matmul(xp[:, :, mf * s: mf * s + q], wf[mf].unsqueeze(1))
+        t = torch.matmul(xp[:, :, mf * s: mf * s + q].float(), wf[mf].float().unsqueeze(1))
         y = t if y is None else y + t
-    return y
+    return y.to(xp.dtype)
+
+
+def excess_over_one_bf16_ulp(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The bf16 form's tolerance against its twin: both round an f32 sum
+    once, taken in different orders, so where the two sums straddle a
+    rounding boundary they differ by one bf16 ulp of ``want`` (2^-8 to 2^-7
+    of it), plus the sums' own f32 error where y cancels to near zero
+    (1e-5 of max |want|). Returns the largest excess over that (<= 0: all
+    within)."""
+    got, want = got.double(), want.double()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+    return ((got - want).abs() - ulp - 1e-5 * want.abs().max()).max().item()
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -63,35 +85,42 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
 
 
 def _swizzle_rows(w: torch.Tensor) -> torch.Tensor:
-    """[..., n, 32] -> the same with 16-byte chunk c of row n at c ^ (n % 8),
-    the 128-byte swizzle wgmma reads (its own inverse)."""
+    """[..., n, k] of 128-byte rows (k = 32 f32 or 64 bf16) -> the same with
+    16-byte chunk c of row n at c ^ (n % 8), the 128-byte swizzle wgmma reads
+    (its own inverse)."""
     n = w.shape[-2]
     perm = torch.arange(8)[None, :] ^ (torch.arange(n) % 8)[:, None]  # [n, 8]
-    chunks = w.reshape(*w.shape[:-1], 8, 4)
+    chunks = w.reshape(*w.shape[:-1], 8, w.shape[-1] // 8)
     index = perm.to(w.device)[..., None].expand(chunks.shape)
     return torch.gather(chunks, -2, index).reshape(w.shape)
 
 
 def split_weights_reference(wf: torch.Tensor, flip_t: bool = False) -> torch.Tensor:
     """Plain twin of the prologue kernel: the B operand ``b[mf, g, n, k]``
-    (``wf[mf, g, k, n]``, or ``wf[kf-1-mf, g, n, k]`` for ``flip_t``) split
-    into ``hi = tf32(b)`` and ``lo = tf32(b - hi)`` and laid out
-    ``[2, kf, g, K/32, N, 32]`` with swizzled rows."""
-    b = (torch.flip(wf, (0,)) if flip_t else wf.transpose(-1, -2)).float()
-    hi = tf32_round(b)
-    w = torch.stack([hi, tf32_round(b - hi)])  # [2, kf, g, n, k]
-    two, kf, g, n, k = w.shape
-    w = w.reshape(two, kf, g, n, k // _K_BLOCK, _K_BLOCK).transpose(3, 4)
+    (``wf[mf, g, k, n]``, or ``wf[kf-1-mf, g, n, k]`` for ``flip_t``) laid out
+    ``[parts, kf, g, K/kb, N, kb]`` with swizzled rows: f32 split into
+    ``hi = tf32(b)`` and ``lo = tf32(b - hi)`` (parts 2, kb 32), bf16 as it
+    is (parts 1, kb 64)."""
+    b = torch.flip(wf, (0,)) if flip_t else wf.transpose(-1, -2)
+    if wf.dtype == torch.bfloat16:
+        w = b[None]
+    else:
+        b = b.float()
+        hi = tf32_round(b)
+        w = torch.stack([hi, tf32_round(b - hi)])  # [2, kf, g, n, k]
+    parts, kf, g, n, k = w.shape
+    kb = k_block(wf.dtype)
+    w = w.reshape(parts, kf, g, n, k // kb, kb).transpose(3, 4)
     return _swizzle_rows(w.contiguous())
 
 
 @functools.lru_cache(maxsize=1)
 def _lib():
     lib = _build.load(SOURCE)
-    lib.gouter_split_weights.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
-                                         + [ctypes.c_void_p])
-    lib.gouter_tap_dots.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
-    for fn in (lib.gouter_split_weights, lib.gouter_tap_dots):
+    lib.gouter_pack_weights.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+                                        + [ctypes.c_void_p])
+    lib.gouter_tap_dots.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+    for fn in (lib.gouter_pack_weights, lib.gouter_tap_dots):
         fn.restype = ctypes.c_int
     return lib
 
@@ -103,7 +132,7 @@ def _sm_count(device: torch.device) -> int:
 
 def plan_tiles(g: int, m: int, n: int, n_kblocks: int, sms: int = 132):
     """The main kernel's launch for a call of M = B*q rows, N columns and
-    ``n_kblocks`` K blocks of 32 per group: ``(warpgroups, tile columns,
+    ``n_kblocks`` K blocks (of :func:`k_block`) per group: ``(warpgroups, tile columns,
     splits)``. The first tile of :data:`_TILES` that gives at least one block
     per SM; else 64x64 tiles with K split over enough blocks, each split a
     contiguous run of K blocks (no split is empty)."""
@@ -122,23 +151,27 @@ def _stream(t: torch.Tensor) -> int:
 
 def split_weights(wf: torch.Tensor, flip_t: bool = False) -> torch.Tensor:
     """The prologue: :func:`split_weights_reference` by the kernel on a CUDA
-    tensor (contiguous float32 ``wf``), by the twin on a CPU tensor."""
+    tensor (contiguous float32 or bfloat16 ``wf``), by the twin on a CPU
+    tensor."""
     if not wf.is_cuda:
         return split_weights_reference(wf, flip_t)
     kf, g, x_dim, y_dim = wf.shape
     n, kc = (x_dim, y_dim) if flip_t else (y_dim, x_dim)
-    wk = torch.empty((2, kf, g, kc // _K_BLOCK, n, _K_BLOCK), dtype=torch.float32,
+    bf16 = wf.dtype == torch.bfloat16
+    kb = k_block(wf.dtype)
+    wk = torch.empty((1 if bf16 else 2, kf, g, kc // kb, n, kb), dtype=wf.dtype,
                      device=wf.device)
-    err = _lib().gouter_split_weights(wf.data_ptr(), wk.data_ptr(), kf, g, kc, n, int(flip_t),
-                                      wf.device.index, _stream(wf))
+    err = _lib().gouter_pack_weights(wf.data_ptr(), wk.data_ptr(), kf, g, kc, n, int(flip_t),
+                                     int(bf16), wf.device.index, _stream(wf))
     if err != 0:
         raise RuntimeError(f"weight-split kernel launch failed: CUDA error {err}")
     return wk
 
 
 def _check(xp: torch.Tensor, wf: torch.Tensor, s: int, q: int, flip_t: bool = False):
-    if xp.dtype != torch.float32 or wf.dtype != torch.float32:
-        raise ValueError(f"expected float32, got {xp.dtype} and {wf.dtype}")
+    if xp.dtype not in _DTYPES or wf.dtype != xp.dtype:
+        raise ValueError(f"expected float32 or bfloat16, the same for both, got {xp.dtype} "
+                         f"and {wf.dtype}")
     if xp.ndim != 4 or wf.ndim != 4 or wf.device != xp.device:
         raise ValueError(f"expected xp [g, B, Qp, X] and wf [kf, g, X, Y] on one "
                          f"device, got {tuple(xp.shape)} and {tuple(wf.shape)}")
@@ -165,31 +198,36 @@ def gouter_tap_dots_kernel(xp: torch.Tensor, wf: torch.Tensor, s: int, q: int,
     ``t < q``, ``w = wf`` or (``flip_t``) ``flip(wf, taps).transpose(-1, -2)``:
     [g, B, q, N].
 
-    A CUDA tensor goes through the kernels, which raise on a shape or layout
-    they do not take; a CPU tensor goes through
-    :func:`gouter_tap_dots_reference`. ``gouter_tap_dots_kernel.launches``
-    counts the calls that launched the kernels."""
+    y is in the operands' type, float32 or bfloat16. A CUDA tensor goes
+    through the kernels, which raise on a type, shape or layout they do not
+    take; a CPU tensor goes through :func:`gouter_tap_dots_reference`.
+    ``gouter_tap_dots_kernel.launches`` counts the calls that launched the
+    kernels, ``.bf16_launches`` those of them on bfloat16 operands."""
     if not xp.is_cuda:
         return gouter_tap_dots_reference(xp, wf, s, q, flip_t)
     _check(xp, wf, s, q, flip_t)
     g, batch, qp, kc = xp.shape
     kf = wf.shape[0]
     n = wf.shape[2] if flip_t else wf.shape[3]
-    y = torch.empty((g, batch, q, n), dtype=torch.float32, device=xp.device)
+    bf16 = xp.dtype == torch.bfloat16
+    y = torch.empty((g, batch, q, n), dtype=xp.dtype, device=xp.device)
     if batch == 0:
         return y
     wk = split_weights(wf, flip_t)
-    nwg, bn, splits = plan_tiles(g, batch * q, n, kf * kc // _K_BLOCK, _sm_count(xp.device))
+    nwg, bn, splits = plan_tiles(g, batch * q, n, kf * kc // k_block(xp.dtype),
+                                 _sm_count(xp.device))
     partial = (torch.empty((splits, g, batch * q, n), dtype=torch.float32, device=xp.device)
                if splits > 1 else None)
     err = _lib().gouter_tap_dots(xp.data_ptr(), wk.data_ptr(),
                                  None if partial is None else partial.data_ptr(), y.data_ptr(),
-                                 g, batch, qp, kc, n, kf, s, q, nwg, bn, splits,
+                                 g, batch, qp, kc, n, kf, s, q, nwg, bn, splits, int(bf16),
                                  xp.device.index, _stream(xp))
     if err != 0:
         raise RuntimeError(f"tap-window kernel launch failed: CUDA error {err}")
     gouter_tap_dots_kernel.launches += 1
+    gouter_tap_dots_kernel.bf16_launches += bf16
     return y
 
 
 gouter_tap_dots_kernel.launches = 0
+gouter_tap_dots_kernel.bf16_launches = 0

@@ -11,8 +11,9 @@
   tiny size: 2 steps straight equal 1 step, ``--resume``, 1 step, bit for bit
   (the same ops on the CPU); ``cli/fastpitch_infer.py`` loads the trained
   checkpoint, and its model is the trainer's;
-- ``--amp`` raises, and without ``--device`` the CLIs raise when there is no
-  card.
+- ``--amp`` (bf16) trains 1 step, ``--resume`` 1 step, into f32
+  checkpoints that the serving CLI reads in bf16; every flag of the JAX CLI
+  is taken, and without ``--device`` the CLIs raise when there is no card.
 """
 
 import numpy as np
@@ -221,9 +222,43 @@ def test_cli_host_prior_and_validation_run(tmp_path, corpus):
     assert len(list((tmp_path / "feats").glob("*_prior.npy"))) == 5
 
 
+def test_cli_amp_trains_resumes_and_infer_loads(tmp_path, corpus):
+    from neuraltexttospeech_torch.cli import fastpitch_infer, fastpitch_prepare_dataset
+    from neuraltexttospeech_torch.train.checkpoint import Checkpointer
+
+    fastpitch_prepare_dataset.main(["-d", str(tmp_path / "feats"), "--training-files",
+                                    str(corpus / "list.txt"), "--device", "cpu"])
+    first = _train(tmp_path, corpus, "amp", "--epochs", "1", "--amp")
+    resumed = _train(tmp_path, corpus, "amp", "--epochs", "2", "--amp", "--resume")
+    assert (first["steps"], resumed["steps"], resumed["trainer"].step) == (1, 1, 2)
+    assert resumed["trainer"].amp
+    for run in (first, resumed):
+        assert all(np.isfinite(v) for v in run["metrics"].values())
+    state = Checkpointer(tmp_path / "amp" / "checkpoints").restore()["trainer"]
+    assert all(v.dtype == torch.float32 for v in state["model"].values()
+               if v.is_floating_point())
+    lines = tmp_path / "lines.txt"
+    lines.write_text("Hello world.\n")
+    fastpitch_infer.main(["--checkpoint", str(tmp_path / "amp" / "checkpoints" / "2"), "-i",
+                          str(lines), "-o", str(tmp_path / "mels"), "--max-mel-len", "64",
+                          "--device", "cpu", "--amp"])
+    mel = np.load(tmp_path / "mels" / "utt_0000_mel.npy")
+    assert mel.dtype == np.float32 and mel.shape[1] == 80 and np.isfinite(mel).all()
+
+
 def test_cli_refuses_what_is_not_ported(tmp_path, corpus):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _train(tmp_path, corpus, "x", "--amp")
+    """Nothing is left to refuse: every flag of the JAX CLI parses to the
+    same value in the port's, ``--amp`` included."""
+    import importlib
+
+    from neuraltexttospeech_torch.cli import fastpitch_train
+
+    jax_cli = importlib.import_module("fastpitch.train")
+    argv = ["-o", "x", "-d", "y", "--training-files", "z", "--amp"]
+    ref, ours = vars(jax_cli.parse_args(argv)), vars(fastpitch_train.parse_args(argv))
+    assert set(ref) <= set(ours) and ours["amp"] is True
+    assert all(ours[k] == v for k, v in ref.items()), {k: (ours[k], v) for k, v in ref.items()
+                                                      if ours[k] != v}
 
 
 @pytest.mark.parametrize("cli", ["fastpitch_train", "fastpitch_prepare_dataset"])

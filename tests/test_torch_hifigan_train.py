@@ -2,17 +2,22 @@
 
 - ``VocoderDataset`` draws the same crops as the JAX package's for a seed,
   and its host mels agree with JAX's (1e-4, the rFFT log-mel budget of
-  ``tests/test_torch_audio.py``);
+  ``tests/test_torch_audio.py``); in fine-tuning mode (acoustic-model mels)
+  the same mel and audio crops bit for bit, and loss mels within the
+  log-mel budget (1e-3: the port's fused log-mel against JAX's rFFT);
 - ``cli/hifigan_train.py`` at ``TINY`` (``tests/test_hifigan.py:16-21``) on
   synthetic wavs: 2 steps straight equal 1 step, save, ``--resume``, 1 step
   (bit for bit: the same ops on the CPU), and ``cli/hifigan_infer.py`` loads
-  the trained generator;
-- what is not ported yet raises, and an old ``model_config.json`` without
-  the training fields still loads.
+  the trained generator; with ``--amp`` (bf16) 1 step, ``--resume``, 1 step,
+  f32 checkpoints, and the loader reads them; one step on
+  ``--fine-tuning-mel-dir``;
+- the TPU-only MSD lowerings raise as not ported, and an old
+  ``model_config.json`` without the training fields still loads.
 """
 
 import dataclasses
 import json
+import shutil
 
 import numpy as np
 import pytest
@@ -71,15 +76,41 @@ def test_dataset_crops_and_mels_match_jax(wav_filelist):
     assert len(a) == len(b) == 2
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x["audio"], y["audio"])
-    with pytest.raises(NotImplementedError):
-        PortDS(wav_filelist, fine_tuning_mel_dir="mels")
+    # fine-tuning mode: acoustic-model mels, one shorter than the crop
+    mel_dir = _fine_tuning_mels(wav_filelist, kw["hop_size"], kw["num_mels"])
+    port, ref = (cls(wav_filelist, fine_tuning_mel_dir=mel_dir, **kw) for cls in (PortDS, JaxDS))
+    for epoch in range(3):
+        for a, b in zip(port.batches(2, seed=epoch), ref.batches(2, seed=epoch)):
+            assert sorted(a) == sorted(b)
+            np.testing.assert_array_equal(a["audio"], b["audio"])
+            np.testing.assert_array_equal(a["mel"], b["mel"])
+            np.testing.assert_allclose(a["mel_loss"], b["mel_loss"], atol=1e-3)
 
 
-def _train(tmp_path, out, *extra):
+def _fine_tuning_mels(filelist, hop, n_mels):
+    """``<utt>_mel.npy`` beside each wav of ``filelist``: random mels of the
+    wav's frame count, the first cut short (8 frames) so that its crop pads."""
+    import pathlib
+
+    paths = [line.split("|")[0] for line in pathlib.Path(filelist).read_text().splitlines()]
+    mel_dir = pathlib.Path(filelist).parent / "ft_mels"
+    mel_dir.mkdir(exist_ok=True)
+    rng = np.random.default_rng(5)
+    for i, p in enumerate(paths):
+        import scipy.io.wavfile
+
+        _, wav = scipy.io.wavfile.read(p)
+        frames = 8 if i == 0 else len(wav) // hop
+        np.save(mel_dir / pathlib.Path(p).name.replace(".wav", "_mel.npy"),
+                rng.standard_normal((frames, n_mels)).astype(np.float32))
+    return str(mel_dir)
+
+
+def _train(tmp_path, out, *extra, config=TINY):
     from neuraltexttospeech_torch.cli import hifigan_train
 
     cfg = tmp_path / "tiny.json"
-    cfg.write_text(json.dumps(TINY))
+    cfg.write_text(json.dumps(config))
     return hifigan_train.main(["--config", str(cfg), "-o", str(tmp_path / out),
                                "--training-files", str(tmp_path / "list.txt"),
                                "--batch-size", "2", "--steps-per-epoch", "1",
@@ -122,11 +153,49 @@ def test_cli_resume_equals_straight_run_and_infer_loads(tmp_path, wav_filelist):
         torch.testing.assert_close(gen(mel), resumed["trainer"].gen(mel), rtol=1e-5, atol=1e-6)
 
 
+def test_cli_amp_trains_resumes_and_infer_loads(tmp_path, wav_filelist):
+    """``--amp``: bf16 compute, f32 parameters and Adam state in the
+    checkpoint, a resume that continues, and a serving checkpoint that the
+    loader reads in either mode."""
+    from neuraltexttospeech_torch.cli import hifigan_infer
+    from neuraltexttospeech_torch.train.checkpoint import Checkpointer
+
+    first = _train(tmp_path, "amp", "--epochs", "1", "--amp")
+    resumed = _train(tmp_path, "amp", "--epochs", "2", "--amp", "--resume")
+    assert (first["steps"], resumed["steps"], resumed["trainer"].step) == (1, 1, 2)
+    assert resumed["trainer"].amp
+    for run in (first, resumed):
+        assert run["metrics"] and all(np.isfinite(v) for v in run["metrics"].values())
+    state = Checkpointer(tmp_path / "amp" / "checkpoints").restore()["trainer"]
+    for name in ("gen", "mpd", "msd"):
+        assert all(v.dtype == torch.float32 for v in state[name].values()
+                   if v.is_floating_point())
+        for s in state["optimizers"][name]["state"].values():
+            assert all(v.dtype == torch.float32 for k, v in s.items() if k != "step")
+    ckpt = tmp_path / "amp" / "checkpoints" / "2"
+    gen, _ = hifigan_infer.load_generator(ckpt, CPU)
+    mel = torch.randn(1, 12, 8)
+    with torch.no_grad():
+        torch.testing.assert_close(gen(mel), resumed["trainer"].gen(mel), rtol=1e-5, atol=1e-6)
+    audio = hifigan_infer.vocode(gen, mel, amp=True)
+    assert audio.dtype == torch.float32 and torch.isfinite(audio).all()
+    shutil.rmtree(tmp_path / "amp")  # ~0.9 GB a checkpoint: the full MPD and MSD with Adam
+
+
+def test_cli_fine_tuning_mel_dir_trains(tmp_path, wav_filelist):
+    mel_dir = _fine_tuning_mels(wav_filelist, TINY["hop_size"], TINY["num_mels"])
+    run = _train(tmp_path, "ft", "--epochs", "1", "--fine-tuning-mel-dir", mel_dir)
+    assert run["steps"] == 1 and all(np.isfinite(v) for v in run["metrics"].values())
+    shutil.rmtree(tmp_path / "ft")
+
+
 def test_cli_refuses_what_is_not_ported(tmp_path, wav_filelist):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _train(tmp_path, "x", "--amp")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _train(tmp_path, "x", "--fine-tuning-mel-dir", str(tmp_path))
+    """Every flag of the JAX CLI is ported; the MSD lowerings that exist only
+    for the TPU are refused."""
+    for lowering in ("bgc", "folded", True):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            _train(tmp_path, "x", "--epochs", "1",
+                   config=dict(TINY, fast_grouped_convs=lowering))
 
 
 def test_old_model_config_without_training_fields_loads(tmp_path):

@@ -366,12 +366,136 @@ def test_cuda_tap_dots_autograd_matches_twin(cuda_device):
         torch.testing.assert_close(a, b_, rtol=1e-5, atol=1e-5 * b_.abs().max().item())
 
 
+# ------------------------------------------------------------- B2 in bf16
+
+# every forward call of a v1 GAN step (batch 16 x 8192): the dx shapes'
+# Qp' is the forward's Qp = q + (kf - 1)*s, and X and Y swap back
+B2_FWD_SHAPES = [(g, b, q, x_dim, y_dim, kf, s, q - (kf - 1) * s)
+                 for g, b, _, y_dim, x_dim, kf, s, q in B2_DX_SHAPES]
+
+
+def assert_within_one_bf16_ulp(got, want):
+    """The bf16 form's tolerance (``excess_over_one_bf16_ulp``)."""
+    excess = gouter_kernel.excess_over_one_bf16_ulp(got.cpu(), want.cpu())
+    assert excess <= 0, (f"off by more than one bf16 ulp, by {excess:.3e}; max |diff| "
+                         f"{(got.float() - want.float()).abs().max().item():.3e}")
+
+
+def test_one_bf16_ulp_tolerance_counts_ulps():
+    """One bf16 ulp of the twin's value passes, two do not; an element that
+    cancels to near zero gets 1e-5 of max |y|."""
+    want = torch.tensor([1.0, 3.0, 100.0, 0.0])
+    one = torch.tensor([1.0 + 2 ** -7, 3.0 - 2 ** -6, 100.0 + 0.5, 1e-4])
+    two = torch.tensor([1.0 + 2 ** -6, 3.0, 100.0, 0.0])
+    assert gouter_kernel.excess_over_one_bf16_ulp(one, want) <= 0
+    assert gouter_kernel.excess_over_one_bf16_ulp(two, want) > 0
+
+
+def test_bf16_twin_rounds_an_f32_sum_once():
+    """The twin on bf16 operands is the f32 twin on the same (exact) values,
+    rounded to bf16 once, as the Pallas body's f32 accumulator is."""
+    xp, wf, s, q = _tap_inputs((4, 2, 36, 128, 128, 21, 1, 16), False, torch.device("cpu"))
+    xb, wb = xp.bfloat16(), wf.bfloat16()
+    got = gouter_kernel.gouter_tap_dots_reference(xb, wb, s, q)
+    assert got.dtype == torch.bfloat16
+    want = gouter_kernel.gouter_tap_dots_reference(xb.float(), wb.float(), s, q)
+    assert torch.equal(got, want.bfloat16())
+
+
+@pytest.mark.parametrize("flip_t", [False, True])
+def test_bf16_weight_pack_twin_is_flip_transpose_of_wf(flip_t):
+    """The prologue's twin on bf16 weights, unswizzled: one part, K blocks of
+    64, equal to the K-major operand bit for bit."""
+    wf = torch.randn(3, 4, 128, 192).bfloat16()
+    wk = gouter_kernel.split_weights_reference(wf, flip_t)
+    parts, kf, g, kb, n, width = wk.shape
+    assert wk.dtype == torch.bfloat16 and (parts, width) == (1, 64)
+    assert (kf, g, kb * 64, n) == ((3, 4, 192, 128) if flip_t else (3, 4, 128, 192))
+    got = gouter_kernel._swizzle_rows(wk).transpose(3, 4).reshape(kf, g, n, kb * 64)
+    want = torch.flip(wf, (0,)) if flip_t else wf.transpose(-1, -2)
+    assert torch.equal(got, want)
+    # a bf16 row's 16-byte chunks hold 8 values: row n = 1 swaps chunks 0, 1
+    logical = torch.arange(2 * 64, dtype=torch.float32).reshape(1, 2, 64)
+    sw = gouter_kernel._swizzle_rows(logical)
+    assert sw[0, 1, :8].tolist() == logical[0, 1, 8:16].tolist()
+
+
+@pytest.mark.parametrize("shape", B2_FWD_SHAPES + B2_DX_SHAPES)
+def test_bf16_tile_plan_fills_the_card(shape):
+    """With bf16's K blocks of 64, every call still launches at least one
+    block per SM, or splits K as far as it goes."""
+    g, b, _, x_dim, y_dim, kf, _, q = shape
+    n_kb = kf * x_dim // gouter_kernel.k_block(torch.bfloat16)
+    nwg, bn, splits = gouter_kernel.plan_tiles(g, b * q, y_dim, n_kb)
+    blocks = -(-b * q // (64 * nwg)) * (y_dim // bn) * g * splits
+    assert 1 <= splits <= n_kb and (blocks >= 132 or splits == n_kb)
+    assert (splits - 1) * -(-n_kb // splits) < n_kb
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape, flip_t", [(s, False) for s in B2_FWD_SHAPES + B2_SHAPES[-2:]]
+                         + [(s, True) for s in B2_DX_SHAPES])
+def test_cuda_bf16_tap_dots_match_plain_twin(cuda_device, shape, flip_t):
+    """bf16 forward and dx at every v1 MSD shape (both tiles and the split-K
+    path among them), against the bf16 twin."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    xp, wf, s, q = _tap_inputs(shape, flip_t, cuda_device)
+    xp, wf = xp.bfloat16(), wf.bfloat16()
+    before = (gouter_kernel.gouter_tap_dots_kernel.launches,
+              gouter_kernel.gouter_tap_dots_kernel.bf16_launches)
+    got = gouter_kernel.gouter_tap_dots_kernel(xp, wf, s, q, flip_t)
+    torch.cuda.synchronize()
+    assert (gouter_kernel.gouter_tap_dots_kernel.launches,
+            gouter_kernel.gouter_tap_dots_kernel.bf16_launches) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.bfloat16
+    want = gouter_kernel.gouter_tap_dots_reference(xp, wf, s, q, flip_t)
+    assert_within_one_bf16_ulp(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flip_t", [False, True])
+def test_cuda_bf16_weight_pack_matches_twin(cuda_device, flip_t):
+    wf = torch.randn(7, 16, 256, 128, device=cuda_device).bfloat16()
+    got = gouter_kernel.split_weights(wf, flip_t)
+    assert torch.equal(got, gouter_kernel.split_weights_reference(wf, flip_t))
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_tap_dots_autograd_stays_bf16(cuda_device, monkeypatch):
+    """Forward and dx through the bf16 kernel (two bf16 launches, bf16
+    gradients, no upcast), dw through a bf16 einsum, each within one bf16
+    ulp of the f32 gradients through the twin rounded once (autograd through
+    the twin on bf16 leaves would round each tap's dx before the sum)."""
+    from neuraltexttospeech_torch.nn.fastconv import gouter_tap_dots
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # dw is a bf16 einsum: cuBLAS sums it in f32 and rounds once
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        "allow_bf16_reduced_precision_reduction", False)
+    g, b, q, x_dim, y_dim, kf, s = 16, 4, 40, 256, 128, 7, 2
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    xp = torch.randn(g, b, q + (kf - 1) * s, x_dim, device=cuda_device, generator=gen).bfloat16()
+    wf = (torch.randn(kf, g, x_dim, y_dim, device=cuda_device, generator=gen) * 0.03).bfloat16()
+    dy = torch.randn(g, b, q, y_dim, device=cuda_device, generator=gen).bfloat16()
+    x, w = xp.clone().requires_grad_(), wf.clone().requires_grad_()
+    before = gouter_kernel.gouter_tap_dots_kernel.bf16_launches
+    y = gouter_tap_dots(x, w, s, q)
+    assert y.dtype == torch.bfloat16
+    y.backward(dy)
+    assert gouter_kernel.gouter_tap_dots_kernel.bf16_launches - before == 2
+    assert x.grad.dtype == w.grad.dtype == torch.bfloat16
+    x32, w32 = xp.float().requires_grad_(), wf.float().requires_grad_()
+    gouter_kernel.gouter_tap_dots_reference(x32, w32, s, q).backward(dy.float())
+    assert_within_one_bf16_ulp(x.grad, x32.grad.bfloat16())
+    assert_within_one_bf16_ulp(w.grad, w32.grad.bfloat16())
+
+
 @pytest.mark.gpu
 def test_cuda_tap_dots_refuse_what_the_kernel_does_not_take(cuda_device):
     xp = torch.zeros(4, 2, 20, 128, device=cuda_device)
     wf = torch.zeros(3, 4, 128, 128, device=cuda_device)
     for args in ((xp[..., :64].contiguous(), wf[:, :, :64].contiguous(), 1, 8),
-                 (xp.double(), wf.double(), 1, 8), (xp, wf, 1, 19),
+                 (xp.double(), wf.double(), 1, 8), (xp.half(), wf.half(), 1, 8),
+                 (xp.bfloat16(), wf, 1, 8), (xp, wf, 1, 19),
                  (xp, torch.zeros(3, 4, 128, 96, device=cuda_device), 1, 8),
                  (xp.transpose(2, 3), wf, 1, 8),
                  (xp, torch.zeros(3, 4, 128, 256, device=cuda_device), 1, 8, True)):
