@@ -365,8 +365,17 @@ def tap_dots_bound_ms(shape, dtype="f32"):
             fma_ms)
 
 
-# kernel names of B2 in a profile (its prologue, main kernel and split-K sum)
-B2_KERNELS = ("tap_dots", "split_weights_kernel", "sum_splits_kernel")
+# kernel names of B2 in a profile (its main kernel, prologue and split-K sum)
+B2_KERNELS = ("tap_dots_tc_kernel", "pack_weights_kernel", "sum_splits_kernel")
+
+
+def excess_over_one_bf16_ulp(got, want):
+    """tests/test_torch_kernels.py's bf16 tolerance: the largest excess of
+    |got - want| over one bf16 ulp of want plus 1e-5 of max|want| (<= 0: all
+    within)."""
+    got, want = got.double(), want.double()
+    ulp = (want.abs().clamp_min(1e-30).log2().floor() - 7).exp2()
+    return ((got - want).abs() - ulp - 1e-5 * want.abs().max()).max().item()
 
 
 def phase_tap_dots(torch, device, card, dtype="f32"):
@@ -401,7 +410,7 @@ def phase_tap_dots(torch, device, card, dtype="f32"):
             d = (got.float() - want.float()).abs().max().item()
             scale_y = want.float().abs().max().item()
             if bf16:
-                excess = gouter_kernel.excess_over_one_bf16_ulp(got, want)
+                excess = excess_over_one_bf16_ulp(got, want)
                 worst_excess = max(worst_excess, excess)
                 if excess > 0:
                     raise RuntimeError(f"B2 bf16 {kind} {shape}: more than one bf16 ulp from "
@@ -648,9 +657,10 @@ def phase_training(torch, device, card, amp=False):
 
     steps = first["steps"] + resumed["steps"]
     trainer = resumed["trainer"]
-    if (first["steps"], resumed["steps"], trainer.step, trainer.amp) != (2, 1, 3, amp):
+    dtype = torch.bfloat16 if amp else None
+    if (first["steps"], resumed["steps"], trainer.step, trainer.dtype) != (2, 1, 3, dtype):
         raise RuntimeError(f"trainer ran {first['steps']} + {resumed['steps']} steps, "
-                           f"ended at step {trainer.step}, amp {trainer.amp}")
+                           f"ended at step {trainer.step}, dtype {trainer.dtype}")
     for run in (first, resumed):
         bad = {k: v for k, v in run["metrics"].items() if not np.isfinite(v)}
         if bad or not run["metrics"]:
@@ -768,7 +778,8 @@ def phase_fastpitch_training(torch, device, card):
 
         steps = first["steps"] + resumed["steps"]
         trainer = resumed["trainer"]
-        if (first["steps"], resumed["steps"], trainer.step, trainer.amp) != (2, 1, 3, bool(flags)):
+        if (first["steps"], resumed["steps"], trainer.step, trainer.dtype) != (2, 1, 3,
+                                                                    torch.bfloat16 if flags else None):
             raise RuntimeError(f"FastPitch trainer ({tag}) ran {first['steps']} + "
                                f"{resumed['steps']} steps, ended at step {trainer.step}")
         for run in (first, resumed):
@@ -832,14 +843,30 @@ def bf16_yardstick(what, card, cpu_bf16, cpu_f32):
     return e_card, e_cpu
 
 
-def check_bf16_step(label, metrics, params, lr):
-    """A bf16 train step card vs CPU: metrics by :func:`bf16_yardstick`,
-    parameters within 2.5 lr + 1e-6 (an Adam step is about lr sign(g));
-    ``metrics``/``params`` map (amp, device type) to the step's outputs."""
+def check_bf16_step(label, metrics, params, grads, lr):
+    """A bf16 train step card vs CPU: metrics by :func:`bf16_yardstick`; the
+    gradients by it too, as tests/test_torch_bf16.py's ``grads_yardstick``
+    holds them against JAX (the whole gradient as one tensor, and the median
+    over parameters of each one's |card - CPU| over its own bound);
+    parameters within 2.5 lr + 1e-6 (an Adam step is about lr sign(g), so
+    this bound alone would hold any gradient). ``metrics``/``params``/
+    ``grads`` map (amp, device type) to the step's outputs."""
     worst_m = {}
     for k, v in metrics[(False, "cpu")].items():
         worst_m[k] = bf16_yardstick(f"{label} {k}", metrics[(True, "cuda")][k],
                                     metrics[(True, "cpu")][k], v)
+    ratios, e = [], np.zeros(3)
+    for k, v in grads[(False, "cpu")].items():
+        card, cb, cf = (t.double() for t in (grads[(True, "cuda")][k], grads[(True, "cpu")][k], v))
+        leaf = np.array([(card - cb).abs().max().item(), (cb - cf).abs().max().item(),
+                         cf.abs().max().item()])
+        e = np.maximum(e, leaf)
+        bound = 2 * leaf[1] + 1e-3 * leaf[2]
+        ratios.append((leaf[0] / bound if bound > 0 else float(leaf[0] > 0), k))
+    median = float(np.median([r for r, _ in ratios]))
+    if e[0] > 2 * e[1] + 1e-3 * e[2] or median > 1.0:
+        raise RuntimeError(f"bf16 {label} gradients: card vs CPU {e[0]:.3e} (CPU bf16 vs f32 "
+                           f"{e[1]:.3e}), median over parameters {median:.2f} of the bound")
     worst_p = 0.0
     for k, v in params[(True, "cpu")].items():
         d = (params[(True, "cuda")][k].double() - v.double()).abs().max().item()
@@ -849,9 +876,13 @@ def check_bf16_step(label, metrics, params, lr):
         elif d > 2.5 * lr + 1e-6:
             raise RuntimeError(f"bf16 {label} parameter {k}: card vs CPU {d:.3e} > 2.5 lr")
         worst_p = max(worst_p, d)
+    worst = max(ratios)
     log(f"reference: {label} bf16 card vs CPU: metrics (|card - CPU|, CPU bf16 vs f32) "
         + ", ".join(f"{k} {a:.2e}/{b:.2e}" for k, (a, b) in sorted(worst_m.items()))
-        + f"; max|param diff| {worst_p:.2e} (bound {2.5 * lr + 1e-6:.2e})")
+        + f"; gradients {e[0]:.2e}/{e[1]:.2e} (bound {2 * e[1] + 1e-3 * e[2]:.2e}), median "
+        f"{median:.2f} of each parameter's bound, {sum(r > 1 for r, _ in ratios)} of "
+        f"{len(ratios)} past it, the farthest {worst[1]} ({worst[0]:.2f}); max|param diff| "
+        f"{worst_p:.2e} (bound {2.5 * lr + 1e-6:.2e})")
 
 
 def phase_fastpitch_reference(torch, device):
@@ -882,14 +913,20 @@ def phase_fastpitch_reference(torch, device):
             model.load_state_dict(weights)
             trainer = Trainer(make_loss_fn(FastPitchLossConfig(), 1), model,
                               TrainerConfig(optimizer=OptimizerConfig(learning_rate=1e-3,
-                                                                      eps=1e-6)), dev, amp=amp)
+                                                                      eps=1e-6)), dev,
+                              dtype=torch.bfloat16 if amp else None)
             metrics = trainer.train_step({k: torch.as_tensor(v, device=dev)
                                           for k, v in batch.items()})
+            # the first Adam moment after one step is (1 - b1) g
+            b1 = trainer.optimizer.config.beta1
+            names = [n for n, p in model.named_parameters() if p.requires_grad]
             steps[(amp, dev.type)] = ({k: float(v) for k, v in metrics.items()},
-                                      {k: v.detach().cpu() for k, v in model.state_dict().items()})
+                                      {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                                      {n: (m / (1.0 - b1)).cpu()
+                                       for n, m in zip(names, trainer.optimizer.mu)})
     out = {dev: steps[(False, dev)] for dev in ("cuda", "cpu")}
-    check_bf16_step("small FastPitch train step", {k: v[0] for k, v in steps.items()},
-                    {k: v[1] for k, v in steps.items()}, 1e-3)
+    check_bf16_step("small FastPitch train step", *({k: v[i] for k, v in steps.items()}
+                                                    for i in range(3)), 1e-3)
     worst_m = max(abs(out["cuda"][0][k] - v) / max(abs(v), 1e-12) for k, v in out["cpu"][0].items())
     for k, v in out["cpu"][0].items():
         np.testing.assert_allclose(out["cuda"][0][k], v, rtol=2e-4, err_msg=k)
@@ -920,15 +957,17 @@ def phase_gan_reference(torch, device):
     steps = {}
     for amp in (False, True):
         for dev in (device, cpu):
-            trainer = HiFiGANTrainer(cfg, dev, amp=amp)
+            trainer = HiFiGANTrainer(cfg, dev, dtype=torch.bfloat16 if amp else None)
             metrics = trainer.train_step({"audio": torch.as_tensor(audio, device=dev)})
             state = {f"{name}.{k}": v.detach().cpu()
                      for name in ("gen", "mpd", "msd")
                      for k, v in getattr(trainer, name).state_dict().items()}
-            steps[(amp, dev.type)] = ({k: float(v) for k, v in metrics.items()}, state)
+            grads = {f"{name}.{k}": p.grad.cpu() for name in ("gen", "mpd", "msd")
+                     for k, p in getattr(trainer, name).named_parameters()}
+            steps[(amp, dev.type)] = ({k: float(v) for k, v in metrics.items()}, state, grads)
     out = {dev: steps[(False, dev)] for dev in ("cuda", "cpu")}
-    check_bf16_step("TINY GAN step", {k: v[0] for k, v in steps.items()},
-                    {k: v[1] for k, v in steps.items()}, cfg.learning_rate)
+    check_bf16_step("TINY GAN step", *({k: v[i] for k, v in steps.items()} for i in range(3)),
+                    cfg.learning_rate)
     worst_m = max(abs(out["cuda"][0][k] - out["cpu"][0][k]) for k in out["cpu"][0])
     for k, v in out["cpu"][0].items():
         np.testing.assert_allclose(out["cuda"][0][k], v, rtol=2e-4, atol=2e-5, err_msg=k)
@@ -994,8 +1033,9 @@ def device_breakdown(torch, fn, top=6):
     kernels' intervals, so kernels that overlap count once) and the kernels
     that took most time, as ``[(ms, name)]``. Every kernel's summed time, the
     sum over all of them and the number of device events stay on
-    ``device_breakdown.last``, ``.kernel_sum`` and ``.launches``, the host's
-    CUDA runtime calls on ``.runtime``."""
+    ``device_breakdown.last``, ``.kernel_sum`` and ``.launches``, each
+    kernel's count on ``.counts``, the host's CUDA runtime calls on
+    ``.runtime`` and its aten ops' counts on ``.ops``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1016,6 +1056,9 @@ def device_breakdown(torch, fn, top=6):
     device_breakdown.last = kernels
     device_breakdown.kernel_sum = sum(ms for ms, _ in kernels)
     device_breakdown.launches = sum(e.count for e in events)
+    device_breakdown.counts = {e.key: e.count for e in events}
+    device_breakdown.ops = {e.key: e.count for e in prof.key_averages()
+                            if e.device_type != DeviceType.CUDA and e.key.startswith("aten::")}
     device_breakdown.runtime = {  # host side: CUDA runtime calls, (count, ms)
         e.key: (e.count, e.self_cpu_time_total / 1e3) for e in prof.key_averages()
         if e.device_type != DeviceType.CUDA and e.key.startswith(("cuda", "cu"))}
@@ -1026,7 +1069,7 @@ def phase_timing(torch, device, card):
     """text → wav at bench.py's shape: batch 8 × 128 tokens, 1024 frames."""
     from neuraltexttospeech_torch.models.fastpitch import FastPitchConfig
     from neuraltexttospeech_torch.models.hifigan import Generator, HiFiGANConfig
-    from neuraltexttospeech_torch.nn.precision import amp_dtype, compute_dtype
+    from neuraltexttospeech_torch.nn.precision import compute_dtype
 
     B, T_TEXT, MAX_MEL = 8, 128, 1024
     cfg = FastPitchConfig()
@@ -1039,7 +1082,7 @@ def phase_timing(torch, device, card):
 
     for amp in (False, True):
         def run():
-            with torch.inference_mode(), compute_dtype(amp_dtype(amp)):
+            with torch.inference_mode(), compute_dtype(torch.bfloat16 if amp else None):
                 mel = fp.infer(text, lens, max_mel_len=MAX_MEL)[0]
                 return mel, gen(mel)
 
@@ -1055,7 +1098,7 @@ def phase_timing(torch, device, card):
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         wall = float(np.median(walls))
-        with torch.inference_mode(), compute_dtype(amp_dtype(amp)):
+        with torch.inference_mode(), compute_dtype(torch.bfloat16 if amp else None):
             fp_ms = cuda_ms(lambda: fp.infer(text, lens, max_mel_len=MAX_MEL), 3)
             gen_ms = cuda_ms(lambda: gen(mel), 3)
         name = "bf16 (--amp)" if amp else "f32 (TF32 off)"
@@ -1103,9 +1146,9 @@ def phase_train_timing(torch, trainer, card):
     for an ``--amp`` trainer): wall ms and samples/s (median of 3
     synchronised steps), the generator's share (CUDA events over its forward
     and backward), and a profiler split with the idle share and launches."""
-    from neuraltexttospeech_torch.nn.precision import amp_dtype, compute_dtype
+    from neuraltexttospeech_torch.nn.precision import compute_dtype
 
-    mode = "bf16 (--amp)" if trainer.amp else "f32 (TF32 off)"
+    mode = "bf16 (--amp)" if trainer.dtype == torch.bfloat16 else "f32 (TF32 off)"
     rng = np.random.default_rng(6)
     cfg = trainer.config
     batch = {"audio": torch.as_tensor((rng.standard_normal((16, cfg.segment_size, 1)) * 0.1)
@@ -1124,7 +1167,7 @@ def phase_train_timing(torch, trainer, card):
     samples = 16 * cfg.segment_size
     mel = torch.randn(16, cfg.segment_size // cfg.hop_size, cfg.num_mels, device=trainer.device)
     dy = torch.randn(16, cfg.segment_size, 1, device=trainer.device)
-    with compute_dtype(amp_dtype(trainer.amp)):
+    with compute_dtype(trainer.dtype):
         gen_ms = cuda_ms(lambda: torch.autograd.backward(trainer.gen(mel), dy), 3)
     trainer.gen.zero_grad(set_to_none=True)
     log(f"GAN step v1 {mode}: batch 16 x {cfg.segment_size}: wall {wall * 1e3:.1f} ms "
@@ -1135,17 +1178,57 @@ def phase_train_timing(torch, trainer, card):
     busy, top = device_breakdown(torch, lambda: trainer.train_step(batch), top=8)
     b2 = sum(ms for ms, name in device_breakdown.last if any(k in name for k in B2_KERNELS))
     b1 = sum(ms for ms, name in device_breakdown.last if "mel_" in name and "_kernel" in name)
-    launches = sum(count for name, (count, _) in device_breakdown.runtime.items()
-                   if "LaunchKernel" in name)
+    # B2's time counts its main kernel and its prologue, each once per call
+    per_step = b2_launches_per_step(cfg.segment_size)
+    for kernel in B2_KERNELS[:2]:
+        n = sum(c for name, c in device_breakdown.counts.items() if kernel in name)
+        if n != per_step:
+            raise RuntimeError(f"the traced {mode} GAN step ran {kernel} {n} times, not "
+                               f"{per_step}: B2's time would be misread")
+    launches, copies, casts, attrs = launch_counts()
     log(f"  trace ({mode}): card busy {busy:.2f} ms of {wall * 1e3:.2f} ms wall (kernel times "
         f"sum to {device_breakdown.kernel_sum:.2f} ms), idle share "
         f"{1 - busy / (wall * 1e3):.3f}, {device_breakdown.launches} device events, {launches} "
-        f"host kernel launches; B2 {b2:.2f} ms "
-        f"({b2 / device_breakdown.kernel_sum:.1%} of kernel time), B1 {b1:.3f} ms; top: "
+        f"host kernel launches ({copies} of them copy kernels; {casts} dtype casts), {attrs} "
+        f"cudaFuncGetAttributes; B2 {b2:.2f} ms ({b2 / device_breakdown.kernel_sum:.1%} of "
+        f"kernel time, {per_step} main and {per_step} prologue launches), B1 {b1:.3f} ms; top: "
         + "; ".join(f"{ms:.2f} ms {name[:70]}" for ms, name in top))
     runtime = sorted(device_breakdown.runtime.items(), key=lambda kv: -kv[1][1])[:5]
     log("  host: CUDA runtime calls " + "; ".join(
         f"{name} x{count} {ms:.1f} ms" for name, (count, ms) in runtime))
+    # where the launches come from: each network's forward and backward
+    # (inputs and parameters both take gradients, as in the step's two lanes)
+    y = batch["audio"].clone().requires_grad_()
+    nets = {"generator": lambda: [trainer.gen(mel)],
+            "MPD": lambda: trainer.mpd.scores(y)[0],
+            "MSD": lambda: trainer.msd.scores(y, update_stats=False)[0]}
+    split = []
+    for name, fwd in nets.items():
+        def run():
+            with compute_dtype(trainer.dtype):
+                outs = fwd()
+            sum(o.float().sum() for o in outs).backward()
+        run()
+        device_breakdown(torch, run)
+        launches, copies, casts, attrs = launch_counts()
+        split.append(f"{name} {launches} ({copies} copy kernels, {casts} dtype casts, {attrs} "
+                     f"cudaFuncGetAttributes)")
+    for m in (trainer.gen, trainer.mpd, trainer.msd):
+        m.zero_grad(set_to_none=True)
+    log(f"  host kernel launches by network, forward + backward ({mode}): " + "; ".join(split))
+
+
+def launch_counts():
+    """From the last :func:`device_breakdown`: the host's kernel launches,
+    the device's copy kernels (PyTorch's ``direct_copy_kernel``: dtype casts
+    and layout copies), the dtype casts (``aten::_to_copy`` ops, forward and
+    backward) and the host's ``cudaFuncGetAttributes`` calls."""
+    launches = sum(count for name, (count, _) in device_breakdown.runtime.items()
+                   if "LaunchKernel" in name)
+    copies = sum(c for name, c in device_breakdown.counts.items() if "copy_kernel" in name)
+    attrs = sum(count for name, (count, _) in device_breakdown.runtime.items()
+                if "FuncGetAttributes" in name)
+    return launches, copies, device_breakdown.ops.get("aten::_to_copy", 0), attrs
 
 
 def phase_fastpitch_timing(torch, device, card, amp=False):
@@ -1162,7 +1245,7 @@ def phase_fastpitch_timing(torch, device, card, amp=False):
     B, T_TEXT, T_MEL = 16, 128, 768
     torch.manual_seed(0)
     trainer = Trainer(make_loss_fn(FastPitchLossConfig(), 1), FastPitch(FastPitchConfig()),
-                      TrainerConfig(), device, amp=amp)
+                      TrainerConfig(), device, dtype=torch.bfloat16 if amp else None)
     mode = "bf16 (--amp)" if amp else "f32 (TF32 off)"
     batch = {k: torch.as_tensor(v, device=device) for k, v in fastpitch_batch(
         5, B, T_TEXT, T_MEL, 148, [T_TEXT] * B, [T_MEL] * B).items()}

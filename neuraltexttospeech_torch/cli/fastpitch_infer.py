@@ -26,7 +26,7 @@ import torch
 
 from ..data.filelist import save_wav
 from ..models.registry import load_checkpoint, load_frontend_config
-from ..nn.precision import amp_dtype, compute_dtype
+from ..nn.precision import compute_dtype
 from ..text.processing import TextProcessing
 from ..utils.device import resolve_device
 from ..utils.serving import round_up, serving_sharding, text_batches
@@ -65,7 +65,7 @@ def synthesize(fastpitch, generator, encoded: Sequence[np.ndarray], *,
                device: torch.device, batch_size: int = 8, pace: float = 1.0,
                max_mel_len: int = 2048, hop_length: int = 256,
                text_bucket: int = 16, frame_bucket: int = VOCODER_BUCKET,
-               amp: bool = False):
+               dtype: Optional[torch.dtype] = None):
     """The serving loop. Yields ``(index, mel [n, n_mel], audio [n·hop] or
     None)`` per utterance, as f32 numpy, in batch order; ``index`` is the
     utterance's position in ``encoded``.
@@ -77,7 +77,7 @@ def synthesize(fastpitch, generator, encoded: Sequence[np.ndarray], *,
     """
     put, _, batch_size = serving_sharding(batch_size, device)
     for idxs, text, lens in text_batches(encoded, batch_size, text_bucket):
-        with torch.inference_mode(), compute_dtype(amp_dtype(amp)):
+        with torch.inference_mode(), compute_dtype(dtype):
             mel, dec_lens = fastpitch.infer(put(text), put(lens), pace=pace,
                                             max_mel_len=max_mel_len)[:2]
         mel = mel.float()  # the host boundary is f32 whatever the compute type
@@ -87,7 +87,7 @@ def synthesize(fastpitch, generator, encoded: Sequence[np.ndarray], *,
             M = min(round_up(int(dec_lens[:len(idxs)].max()), frame_bucket),
                     max_mel_len)
             # a batch whose utterances all got 0 frames has nothing to vocode
-            audio = (vocode(generator, mel[:, :M], amp).cpu().numpy() if M
+            audio = (vocode(generator, mel[:, :M], dtype).cpu().numpy() if M
                      else np.zeros((len(text), 0), np.float32))
         mel = mel.cpu().numpy()
         for r, j in enumerate(idxs):
@@ -125,7 +125,8 @@ def main(argv=None):
     for j, mel, audio in synthesize(
             model, generator, encoded, device=device, batch_size=args.batch_size,
             pace=args.pace, max_mel_len=args.max_mel_len,
-            hop_length=args.hop_length, amp=args.amp):
+            hop_length=args.hop_length,
+            dtype=torch.bfloat16 if args.amp else None):
         np.save(out_dir / f"utt_{j:04d}_mel.npy", mel)
         if audio is not None:
             save_wav(str(out_dir / f"utt_{j:04d}.wav"), audio, args.sampling_rate)

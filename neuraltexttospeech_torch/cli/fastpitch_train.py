@@ -156,7 +156,7 @@ def main(argv=None):
         TrainerConfig(optimizer=opt_cfg, seed=args.seed,
                       checkpoint_dir=str(out / "checkpoints")),
         device, serving=lambda: ("FastPitch", config, model.state_dict(), frontend),
-        amp=args.amp)
+        dtype=torch.bfloat16 if args.amp else None)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"FastPitch: {n_params / 1e6:.1f}M params, {len(train_ds)} train items, "
           f"{'bf16' if args.amp else 'f32'}, device {device}")

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import argparse
 import pathlib
+from typing import Optional
 
 import numpy as np
 import torch
@@ -26,7 +27,7 @@ from ..audio.stft import STFTConfig, mel_spectrogram
 from ..data.filelist import load_filepaths_and_text, load_wav, save_wav
 from ..models.hifigan import HiFiGANConfig
 from ..models.registry import load_checkpoint
-from ..nn.precision import amp_dtype, compute_dtype
+from ..nn.precision import compute_dtype
 from ..utils.device import resolve_device
 
 
@@ -84,10 +85,10 @@ def iter_mels(input_path, config: HiFiGANConfig, device: torch.device):
             yield pathlib.Path(fields[0]).stem, wav_to_mel(audio, config, device)
 
 
-def vocode(generator, mel: torch.Tensor, amp: bool = False) -> torch.Tensor:
-    """mel [B, T, num_mels] → f32 audio [B, T·hop]; ``amp`` runs the
-    generator in bf16 (``nn/precision.py``)."""
-    with torch.inference_mode(), compute_dtype(amp_dtype(amp)):
+def vocode(generator, mel: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """mel [B, T, num_mels] → f32 audio [B, T·hop]; the generator computes in
+    ``dtype`` (``nn/precision.py``; None: f32)."""
+    with torch.inference_mode(), compute_dtype(dtype):
         return generator(mel)[..., 0].float()
 
 
@@ -98,7 +99,7 @@ def main(argv=None):
     out_dir = pathlib.Path(args.output)
     out_dir.mkdir(parents=True, exist_ok=True)
     for name, mel in iter_mels(args.input, config, device):
-        audio = vocode(gen, mel[None], args.amp)[0].cpu().numpy()
+        audio = vocode(gen, mel[None], torch.bfloat16 if args.amp else None)[0].cpu().numpy()
         save_wav(str(out_dir / f"{name}.wav"), audio, config.sampling_rate)
         print(f"{name}: {len(audio) / config.sampling_rate:.2f}s")
 

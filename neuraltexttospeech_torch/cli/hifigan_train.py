@@ -103,7 +103,8 @@ def main(argv=None):
         fmax_for_loss=config.fmax_for_loss, fine_tuning_mel_dir=args.fine_tuning_mel_dir,
         seed=config.seed)
     steps_per_epoch = args.steps_per_epoch or max(len(ds) // batch_size, 1)
-    trainer = HiFiGANTrainer(config, device, steps_per_epoch=steps_per_epoch, amp=args.amp)
+    trainer = HiFiGANTrainer(config, device, steps_per_epoch=steps_per_epoch,
+                             dtype=torch.bfloat16 if args.amp else None)
     n_g = sum(p.numel() for p in trainer.gen.parameters())
     print(f"HiFi-GAN {args.config}: generator {n_g / 1e6:.1f}M params, {len(ds)} clips, "
           f"batch {batch_size}, MSD group impl {trainer.msd_group_impl}, "

@@ -36,9 +36,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..nn import fastconv
-from ..nn.layers import Conv1d, ConvTranspose1d, same_padding
+from ..nn.layers import Conv1d, ConvTranspose1d, promoted_conv, same_padding
 from ..nn.norms import SpectralNorm
-from ..nn.precision import promote
 from ..nn.norms import weight_norm as _weight_norm
 
 __all__ = ["HiFiGANConfig", "Generator", "ResBlock1", "ResBlock2",
@@ -398,13 +397,13 @@ class DiscriminatorS(nn.Module):
                 if x.ndim == 4:
                     x = fastconv.unfold_gouter(x, cur_po, cur_g).transpose(1, 2)
                     cur_po, cur_g = 1, 1
-                x = F.conv1d(*promote(same_pad(x, k, s), w, conv.bias), stride=s, groups=g)
+                x = promoted_conv(F.conv1d, same_pad(x, k, s), w, conv.bias, stride=s, groups=g)
             x = F.leaky_relu(x, LRELU_SLOPE)
             fmap.append(x)
         if x.ndim == 4:
             x = fastconv.unfold_gouter(x, cur_po, cur_g).transpose(1, 2)
         w = self._weight(len(self.convs), self.conv_post, update_stats)
-        x = F.conv1d(*promote(same_pad(x, 3), w, self.conv_post.bias))
+        x = promoted_conv(F.conv1d, same_pad(x, 3), w, self.conv_post.bias)
         fmap.append(x)
         return x.reshape(batch, -1), fmap
 

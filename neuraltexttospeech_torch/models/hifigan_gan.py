@@ -18,22 +18,22 @@ the same starting ``u``), so it runs once and the generator lane reads its
 feature maps detached. The mels run through kernel B1 (``ops/mel_kernel.py``)
 on the card, with its analytic backward for the mel loss.
 
-``amp=True`` is the JAX package's ``--amp`` (``dtype=bf16``): both lanes run
-their convs in bf16 (``nn/precision.py``; the MSD's through B2's bf16 form),
-the generated audio is cast to f32 before its log-mel (B1 stays f32, as in
+``dtype=torch.bfloat16`` is the JAX package's ``--amp`` (flax ``dtype=bf16``):
+both lanes run their convs in bf16 (``nn/precision.py``; the MSD's through
+B2's bf16 form), the generated audio is cast to f32 before its log-mel (B1 stays f32, as in
 JAX), and the three Adams step the f32 parameters with f32 gradients.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch.nn import functional as F
 
 from ..audio.stft import STFTConfig
 from ..nn.norms import folded_state_dict
-from ..nn.precision import amp_dtype, compute_dtype
+from ..nn.precision import compute_dtype
 from ..ops.mel_kernel import fused_mel_spectrogram
 from .hifigan import (
     Generator, HiFiGANConfig, MultiPeriodDiscriminator, MultiScaleDiscriminator,
@@ -95,14 +95,15 @@ class HiFiGANTrainer:
     spectral-norm buffers, three Adams, the step) and :meth:`train_step`.
 
     The learning rate follows :func:`learning_rate` at the pre-update step;
-    ``amp`` runs the step in bf16 (the module docstring)."""
+    ``dtype`` is the step's compute dtype (None: f32; bf16: the module
+    docstring)."""
 
     def __init__(self, config: HiFiGANConfig, device, steps_per_epoch: int = 1000,
-                 amp: bool = False):
+                 dtype: Optional[torch.dtype] = None):
         self.config = config
         self.device = torch.device(device)
         self.steps_per_epoch = steps_per_epoch
-        self.amp = amp
+        self.dtype = dtype
         self.msd_group_impl = resolve_msd_group_impl(config.fast_grouped_convs)
         gen = torch.Generator().manual_seed(config.seed)
         self.gen = init_params_(Generator(config, weight_norm=True), gen).to(self.device)
@@ -121,7 +122,7 @@ class HiFiGANTrainer:
         ``mel`` / ``mel_loss`` [B, S/hop, n_mel] (an audio-only batch computes
         both in the step). Returns the metrics as 0-d f32 tensors on the
         device."""
-        with compute_dtype(amp_dtype(self.amp)):
+        with compute_dtype(self.dtype):
             metrics = self._losses_and_grads(batch)
         lr = learning_rate(self.config, self.step, self.steps_per_epoch)  # pre-update step
         for opt in self.optimizers.values():

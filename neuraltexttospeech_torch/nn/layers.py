@@ -30,7 +30,7 @@ from torch.nn import functional as F
 from .precision import current, promote
 
 __all__ = ["Conv1d", "ConvTranspose1d", "Linear", "Embedding", "LayerNorm", "ConvNorm",
-           "ConvReLUNorm", "LN_EPS", "same_padding", "dropout"]
+           "ConvReLUNorm", "LN_EPS", "same_padding", "dropout", "promoted_conv"]
 
 LN_EPS = 1e-3
 
@@ -56,20 +56,37 @@ def dropout(x: torch.Tensor, p: float,
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def promoted_conv(conv, x: torch.Tensor, weight: torch.Tensor, bias, *args, **kwargs):
+    """``conv(x, weight, bias, *args, **kwargs)``, a PyTorch convolution, with
+    the three cast to the compute dtype (:func:`~.precision.promote`).
+
+    PyTorch's CPU (oneDNN) bf16 convolutions give wrong outputs at some
+    shapes (kernel 8 with 8 input channels, strided kernel-8 convs of 16
+    channels: off by the output's own size), so on the CPU a bf16 conv runs
+    in f32 on the bf16 values and its output is rounded to bf16 once: each
+    product is exact in f32 and the sum is f32, which is a bf16 conv with an
+    f32 accumulator, the card's arithmetic. Its gradients are rounded to
+    bf16 by the casts' backward, as a bf16 conv's are."""
+    x, weight, bias = promote(x, weight, bias)
+    if x.dtype != torch.bfloat16 or x.is_cuda:
+        return conv(x, weight, bias, *args, **kwargs)
+    return conv(x.float(), weight.float(), None if bias is None else bias.float(),
+                *args, **kwargs).to(torch.bfloat16)
+
+
 class Conv1d(nn.Conv1d):
     """``nn.Conv1d`` in the compute dtype (flax ``Conv(dtype=)``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(*promote(x, self.weight, self.bias))
+        return promoted_conv(self._conv_forward, x, self.weight, self.bias)
 
 
 class ConvTranspose1d(nn.ConvTranspose1d):
     """``nn.ConvTranspose1d`` in the compute dtype (no ``output_size``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, w, b = promote(x, self.weight, self.bias)
-        return F.conv_transpose1d(x, w, b, self.stride, self.padding, self.output_padding,
-                                  self.groups, self.dilation)
+        return promoted_conv(F.conv_transpose1d, x, self.weight, self.bias, self.stride,
+                             self.padding, self.output_padding, self.groups, self.dilation)
 
 
 class Linear(nn.Linear):

@@ -28,14 +28,9 @@ from typing import Optional
 
 import torch
 
-__all__ = ["compute_dtype", "current", "promote", "amp_dtype"]
+__all__ = ["compute_dtype", "current", "promote"]
 
 _state = threading.local()
-
-
-def amp_dtype(amp: bool) -> Optional[torch.dtype]:
-    """The compute dtype of an ``--amp`` flag: bf16, or None (f32)."""
-    return torch.bfloat16 if amp else None
 
 
 @contextlib.contextmanager

@@ -15,7 +15,7 @@ operands' type, is rounded once, as the Pallas body (:105-112) does. With
 3xTF32 for f32 operands and by one bf16 product per step for bf16 ones (its
 design and bound are in that file): a prologue kernel writes the weights
 K-major and swizzled, f32 split into TF32 hi and lo parts
-(:func:`split_weights`; twin :func:`split_weights_reference`), then the main
+(:func:`pack_weights`; twin :func:`pack_weights_reference`), then the main
 kernel runs at the tile :func:`plan_tiles` picks.
 :func:`gouter_tap_dots_reference` is the per-tap ``torch.matmul`` loop of
 ``fastconv.py:62-67`` in f32; :func:`gouter_tap_dots_kernel` takes it only
@@ -33,9 +33,8 @@ import torch
 
 from . import _build
 
-__all__ = ["gouter_tap_dots_kernel", "gouter_tap_dots_reference", "split_weights",
-           "split_weights_reference", "plan_tiles", "k_block", "tf32_round",
-           "excess_over_one_bf16_ulp", "SOURCE"]
+__all__ = ["gouter_tap_dots_kernel", "gouter_tap_dots_reference", "pack_weights",
+           "pack_weights_reference", "plan_tiles", "k_block", "tf32_round", "SOURCE"]
 
 SOURCE = "gouter_kernel.cu"
 _WIDTHS = (128, 256, 512)  # X and Y the kernel takes
@@ -65,18 +64,6 @@ def gouter_tap_dots_reference(xp: torch.Tensor, wf: torch.Tensor, s: int, q: int
     return y.to(xp.dtype)
 
 
-def excess_over_one_bf16_ulp(got: torch.Tensor, want: torch.Tensor) -> float:
-    """The bf16 form's tolerance against its twin: both round an f32 sum
-    once, taken in different orders, so where the two sums straddle a
-    rounding boundary they differ by one bf16 ulp of ``want`` (2^-8 to 2^-7
-    of it), plus the sums' own f32 error where y cancels to near zero
-    (1e-5 of max |want|). Returns the largest excess over that (<= 0: all
-    within)."""
-    got, want = got.double(), want.double()
-    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
-    return ((got - want).abs() - ulp - 1e-5 * want.abs().max()).max().item()
-
-
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
     """float32 rounded to TF32 (10 mantissa bits), to nearest with ties away
     from zero, low 13 bits cleared: what ``cvt.rna.tf32.f32`` gives."""
@@ -95,7 +82,7 @@ def _swizzle_rows(w: torch.Tensor) -> torch.Tensor:
     return torch.gather(chunks, -2, index).reshape(w.shape)
 
 
-def split_weights_reference(wf: torch.Tensor, flip_t: bool = False) -> torch.Tensor:
+def pack_weights_reference(wf: torch.Tensor, flip_t: bool = False) -> torch.Tensor:
     """Plain twin of the prologue kernel: the B operand ``b[mf, g, n, k]``
     (``wf[mf, g, k, n]``, or ``wf[kf-1-mf, g, n, k]`` for ``flip_t``) laid out
     ``[parts, kf, g, K/kb, N, kb]`` with swizzled rows: f32 split into
@@ -149,12 +136,12 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def split_weights(wf: torch.Tensor, flip_t: bool = False) -> torch.Tensor:
-    """The prologue: :func:`split_weights_reference` by the kernel on a CUDA
+def pack_weights(wf: torch.Tensor, flip_t: bool = False) -> torch.Tensor:
+    """The prologue: :func:`pack_weights_reference` by the kernel on a CUDA
     tensor (contiguous float32 or bfloat16 ``wf``), by the twin on a CPU
     tensor."""
     if not wf.is_cuda:
-        return split_weights_reference(wf, flip_t)
+        return pack_weights_reference(wf, flip_t)
     kf, g, x_dim, y_dim = wf.shape
     n, kc = (x_dim, y_dim) if flip_t else (y_dim, x_dim)
     bf16 = wf.dtype == torch.bfloat16
@@ -164,7 +151,7 @@ def split_weights(wf: torch.Tensor, flip_t: bool = False) -> torch.Tensor:
     err = _lib().gouter_pack_weights(wf.data_ptr(), wk.data_ptr(), kf, g, kc, n, int(flip_t),
                                      int(bf16), wf.device.index, _stream(wf))
     if err != 0:
-        raise RuntimeError(f"weight-split kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"weight-pack kernel launch failed: CUDA error {err}")
     return wk
 
 
@@ -213,7 +200,7 @@ def gouter_tap_dots_kernel(xp: torch.Tensor, wf: torch.Tensor, s: int, q: int,
     y = torch.empty((g, batch, q, n), dtype=xp.dtype, device=xp.device)
     if batch == 0:
         return y
-    wk = split_weights(wf, flip_t)
+    wk = pack_weights(wf, flip_t)
     nwg, bn, splits = plan_tiles(g, batch * q, n, kf * kc // k_block(xp.dtype),
                                  _sm_count(xp.device))
     partial = (torch.empty((splits, g, batch * q, n), dtype=torch.float32, device=xp.device)

@@ -15,9 +15,9 @@ caller keeps in ``Trainer.extra_state`` (the data order's position); a
 serving checkpoint of the model sits beside them when the caller says how
 to write one.
 
-``amp=True`` runs the loss function's forward in bf16 (``nn/precision.py``,
-the JAX package's ``dtype=bf16``); the parameters, their gradients, the
-optimizer and the checkpoints stay f32.
+``dtype=torch.bfloat16`` runs the loss function's forward in bf16
+(``nn/precision.py``, the JAX package's ``dtype=bf16``); the parameters,
+their gradients, the optimizer and the checkpoints stay f32.
 
 The JAX trainer's pjit mesh and its TensorBoard writer are not here: this
 trainer runs on one card, and the port depends on neither ``tensorflow``
@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ..data.prefetch import prefetch
-from ..nn.precision import amp_dtype, compute_dtype
+from ..nn.precision import compute_dtype
 from .checkpoint import Checkpointer
 from .state import Optimizer, OptimizerConfig, global_norm
 
@@ -90,12 +90,13 @@ class Trainer:
 
     def __init__(self, loss_fn: LossFn, model: torch.nn.Module,
                  config: TrainerConfig = TrainerConfig(), device=None,
-                 serving: Optional[Callable[[], tuple]] = None, amp: bool = False):
+                 serving: Optional[Callable[[], tuple]] = None,
+                 dtype: Optional[torch.dtype] = None):
         """``serving()`` returns ``(model_name, config, state_dict, frontend)``
-        for the serving checkpoint saved beside each train state; ``amp``
-        computes the loss function in bf16."""
+        for the serving checkpoint saved beside each train state; ``dtype``
+        is the loss function's compute dtype (None: f32)."""
         self.config = config
-        self.amp = amp
+        self.dtype = dtype
         self.device = torch.device(device) if device is not None else \
             next(model.parameters()).device
         self.model = model.to(self.device)
@@ -145,7 +146,7 @@ class Trainer:
     def train_step(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """One step; returns the metrics as device scalars."""
         gen = step_generator(self.config.seed, self.step, self.device)
-        with compute_dtype(amp_dtype(self.amp)):
+        with compute_dtype(self.dtype):
             loss, metrics = self._loss_fn(self.model, batch, gen)
         grads = torch.autograd.grad(loss, self.params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
@@ -200,7 +201,7 @@ class Trainer:
         for batch in batches:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(0)
-            with compute_dtype(amp_dtype(self.amp)):
+            with compute_dtype(self.dtype):
                 tracker.update(loss_fn_eval(self.model, batch, gen)[1])
             n += 1
         if n == 0:

@@ -12,15 +12,21 @@ and ``pytest -s`` prints both. Covered:
 - kernel B2's bf16 twin against the Pallas kernel in interpret mode, forward
   and the backward's dx form, within one bf16 ulp (both sum in f32 and round
   once), and the port's dx against JAX's ``_gouter_tap_dots_bwd``;
+- the port's convs in bf16 on the CPU, at shapes where PyTorch's own CPU
+  bf16 conv is wrong: an f32 sum rounded once;
 - the generator on the ``hifigan`` golden's weights;
 - ``FastPitch.infer``: durations and pitch, then the mels with JAX's integer
   durations given to both (a bf16 duration can cross a .5 boundary and shift
   every later frame, which is no fault);
 - the ``text2wav`` serving composition on its golden's weights;
 - one FastPitch ``Trainer`` step at the golden's small FastPitch, dropout
-  off: metrics by the yardstick; each updated parameter within
-  ``2.5 lr + 1e-6`` of JAX's (Adam's first update is about ``lr sign(g)``,
-  so a gradient whose sign bf16 flips moves a parameter by up to 2 lr).
+  off: metrics by the yardstick, and the gradients (``grads_yardstick``:
+  the whole gradient, and the median over parameters); each updated
+  parameter within ``2.5 lr + 1e-6`` of JAX's (Adam's first update is about
+  ``lr sign(g)``, so a gradient whose sign bf16 flips moves a parameter by up
+  to 2 lr; that bound holds any gradient, hence the gradients' check). The
+  gradients are read from Adam's first moment after the step, ``(1 - b1)
+  g`` in both frameworks.
 
 The GAN step is in ``test_torch_bf16_gan.py``.
 """
@@ -46,6 +52,7 @@ from neuraltexttospeech_torch.models import hifigan as port_hg  # noqa: E402
 from neuraltexttospeech_torch.nn.precision import compute_dtype  # noqa: E402
 from neuraltexttospeech_tpu.models import fastpitch as jax_fp  # noqa: E402
 from neuraltexttospeech_tpu.models import hifigan as jax_hg  # noqa: E402
+from test_torch_kernels import excess_over_one_bf16_ulp  # noqa: E402
 from tools.make_goldens import FAMILIES, GOLDEN_DIR  # noqa: E402
 
 BF16 = torch.bfloat16
@@ -100,7 +107,7 @@ def test_b2_bf16_twin_matches_pallas_kernel(shape):
     assert want.dtype == jnp.bfloat16
     got = gouter_kernel.gouter_tap_dots_kernel(to_t(xp), to_t(wf), s, q)
     assert got.dtype == BF16
-    excess = gouter_kernel.excess_over_one_bf16_ulp(got, torch.as_tensor(np.array(want,
+    excess = excess_over_one_bf16_ulp(got, torch.as_tensor(np.array(want,
                                                                                   np.float32)))
     print(f"bf16 B2 forward {shape}: max excess over one ulp {excess:.3e}")
     assert excess <= 0
@@ -115,7 +122,7 @@ def test_b2_bf16_twin_matches_pallas_kernel(shape):
     x_t, w_t = to_t(xp).requires_grad_(), to_t(wf).requires_grad_()
     port_fc.gouter_tap_dots(x_t, w_t, s, q).backward(to_t(dy))
     assert x_t.grad.dtype == w_t.grad.dtype == BF16
-    excess = gouter_kernel.excess_over_one_bf16_ulp(
+    excess = excess_over_one_bf16_ulp(
         x_t.grad, torch.as_tensor(np.array(want_dx, np.float32)))
     print(f"bf16 B2 dx {shape}: max excess over one ulp {excess:.3e}")
     assert excess <= 0
@@ -128,6 +135,34 @@ def test_b2_bf16_twin_matches_pallas_kernel(shape):
               ref[jnp.bfloat16][0], ref[jnp.float32][0])
     yardstick(f"B2 dw vs _gouter_tap_dots_bwd {shape}", w_t.grad.float().numpy(),
               ref[jnp.bfloat16][1], ref[jnp.float32][1])
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_cpu_bf16_conv_is_an_f32_sum_rounded_once(transpose):
+    """Where PyTorch's CPU bf16 conv is wrong (kernel 8 with 8 input
+    channels, forward or a transposed conv's input gradient), the port's
+    layers give the f32 conv of the bf16 values rounded to bf16 once, in the
+    output and in the input gradient, within one bf16 ulp."""
+    from neuraltexttospeech_torch.nn.layers import Conv1d, ConvTranspose1d
+
+    F = torch.nn.functional
+    torch.manual_seed(0)
+    if transpose:
+        layer, conv = ConvTranspose1d(16, 8, 8, stride=4, padding=2), F.conv_transpose1d
+    else:
+        layer, conv = Conv1d(8, 16, 8, stride=4, padding=2), F.conv1d
+    x = torch.randn(2, layer.in_channels, 64).to(BF16).requires_grad_()
+    with compute_dtype(BF16):
+        y = layer(x)
+    dy = torch.randn(y.shape).to(BF16)
+    y.backward(dy)
+    x32 = x.detach().float().requires_grad_()
+    want = conv(x32, layer.weight.detach().to(BF16).float(), layer.bias.detach().to(BF16).float(),
+                stride=4, padding=2)
+    want.backward(dy.float())
+    assert y.dtype == x.grad.dtype == BF16
+    assert excess_over_one_bf16_ulp(y, want.to(BF16)) <= 0
+    assert excess_over_one_bf16_ulp(x.grad, x32.grad.to(BF16)) <= 0
 
 
 # --------------------------------------------------------------------- serving
@@ -254,7 +289,7 @@ def test_text2wav_bf16_matches_jax_composition():
     fp.infer = functools.partial(fp.infer, dur_tgt=torch.as_tensor(dur_tgt))
     (_, mel, audio), = fastpitch_infer.synthesize(
         fp, gen, [encoded], device=CPU, batch_size=1, max_mel_len=128, hop_length=16,
-        text_bucket=1, frame_bucket=32, amp=True)
+        text_bucket=1, frame_bucket=32, dtype=BF16)
     (nb, mel_b, audio_b, _), (nf, mel_f, audio_f, _) = (
         run_jax(dt, dur_tgt=jnp.asarray(dur_tgt)) for dt in (jnp.bfloat16, None))
     assert mel.shape[0] == nb == nf and audio.shape == audio_b.shape == (nb * 16,)
@@ -263,6 +298,40 @@ def test_text2wav_bf16_matches_jax_composition():
 
 
 # --------------------------------------------------------------------- training
+
+def adam_grads(opt_state, b1):
+    """The gradients of a first optax Adam step, from its first moment
+    ``mu = (1 - b1) g`` (the state of any chain around the Adam)."""
+    states = [x for x in jax.tree_util.tree_leaves(opt_state, is_leaf=lambda x: hasattr(x, "mu"))
+              if hasattr(x, "mu")]
+    assert len(states) == 1, states
+    return jax.tree_util.tree_map(lambda m: np.asarray(m) / (1.0 - b1), states[0].mu)
+
+
+def grads_yardstick(what, port, jax_bf16, jax_f32):
+    """One network's gradients (dicts by the port's parameter names) by the
+    yardstick, twice: the whole gradient as one tensor, and each parameter's
+    on its own, where the median over parameters must be within (a single
+    leaf's max is noisy: the port's bf16 backward rounds at other places than
+    XLA's, and its own bf16 error is up to twice JAX's at the MSD's deepest
+    layers). Prints both and the leaf farthest past its bound."""
+    assert sorted(port) == sorted(jax_bf16) == sorted(jax_f32), what
+    ratios, e = [], np.zeros(3)
+    for k in port:
+        pb, jb, jf = (np.asarray(a[k], np.float64) for a in (port, jax_bf16, jax_f32))
+        leaf = np.array([np.abs(pb - jb).max(), np.abs(jb - jf).max(), np.abs(jf).max()])
+        e = np.maximum(e, leaf)
+        bound = 2 * leaf[1] + 1e-3 * leaf[2]
+        ratios.append((leaf[0] / bound if bound > 0 else float(leaf[0] > 0), k))
+    bound = 2 * e[1] + 1e-3 * e[2]
+    worst, median = max(ratios), float(np.median([r for r, _ in ratios]))
+    print(f"bf16 {what}: whole gradient e_port {e[0]:.3e}, e_jax {e[1]:.3e} (bound {bound:.3e}); "
+          f"{len(ratios)} parameters, median e_port / bound {median:.2f}, "
+          f"{sum(r > 1 for r, _ in ratios)} past their own bound, the farthest {worst[1]} "
+          f"({worst[0]:.2f})")
+    assert e[0] <= bound, f"{what}: e_port {e[0]:.3e} > {bound:.3e} (e_jax {e[1]:.3e})"
+    assert median <= 1.0, f"{what}: median e_port / bound {median:.2f} over the parameters"
+
 
 def _param_bound(what, got, want, lr):
     d = max((got[k].double() - want[k].double()).abs().max().item() for k in want)
@@ -306,7 +375,7 @@ def test_fastpitch_trainer_step_bf16_matches_jax():
     params = _np(jax.jit(jax_fp.FastPitch(jax_fp.FastPitchConfig(**kw)).init)(
         jax.random.PRNGKey(9), b0["text"], b0["input_lens"], b0["mel"], b0["mel_lens"],
         b0["pitch"], b0["energy"], None, prior))
-    opt = dict(optimizer="adam", learning_rate=1e-3, eps=1e-6)
+    opt = dict(optimizer="adam", learning_rate=1e-3, eps=1e-6, beta1=0.9)
 
     def jax_step(dt):
         model = jax_fp.FastPitch(jax_fp.FastPitchConfig(**kw, dtype=dt))
@@ -324,19 +393,25 @@ def test_fastpitch_trainer_step_bf16_matches_jax():
             jax_harness.TrainerConfig(optimizer=jax_state.OptimizerConfig(**opt),
                                       log_every=10 ** 9))
         metrics = {k: float(v) for k, v in trainer.train_step(batch).items()}
-        return metrics, fastpitch_train_from_flax(_np(trainer.state.params))
+        grads = fastpitch_train_from_flax(adam_grads(trainer.state.opt_state, opt["beta1"]))
+        return metrics, fastpitch_train_from_flax(_np(trainer.state.params)), grads
 
-    (want_b, sd_b), (want_f, _) = jax_step(jnp.bfloat16), jax_step(None)
+    (want_b, sd_b, g_b), (want_f, _, g_f) = jax_step(jnp.bfloat16), jax_step(None)
     model = port_fp.FastPitch(port_fp.FastPitchConfig(**kw))
     model.load_state_dict(fastpitch_train_from_flax(params))
     ours = port_harness.Trainer(
         make_loss_fn(FastPitchLossConfig(), n_speakers=1), model,
         port_harness.TrainerConfig(optimizer=port_state.OptimizerConfig(**opt),
-                                   log_every=10 ** 9), "cpu", amp=True)
+                                   log_every=10 ** 9), "cpu", dtype=BF16)
     got = ours.train_step({k: torch.as_tensor(v) for k, v in batch.items()})
     assert sorted(got) == sorted(want_b)
     for k in want_b:
         yardstick(f"FastPitch step {k}", float(got[k]), want_b[k], want_f[k])
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    grads_yardstick("FastPitch step gradients",
+                    {n: (m / (1.0 - opt["beta1"])).numpy()
+                     for n, m in zip(names, ours.optimizer.mu)},
+                    {n: g_b[n].numpy() for n in names}, {n: g_f[n].numpy() for n in names})
     sd = model.state_dict()
     assert all(v.dtype == torch.float32 for v in sd.values())
     _param_bound("FastPitch step parameters", sd, {k: sd_b[k] for k in sd}, opt["learning_rate"])

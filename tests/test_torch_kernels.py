@@ -287,7 +287,7 @@ def test_weight_split_twin_is_flip_transpose_of_wf(flip_t):
     """The prologue's twin, unswizzled: hi is TF32 and hi + lo is the
     K-major operand (wf transposed, or for flip_t flipped over the taps)."""
     wf = torch.randn(3, 4, 64, 96)
-    wk = gouter_kernel.split_weights_reference(wf, flip_t)
+    wk = gouter_kernel.pack_weights_reference(wf, flip_t)
     two, kf, g, kb, n, _ = wk.shape
     assert (two, kf, g, kb * 32, n) == ((2, 3, 4, 96, 64) if flip_t else (2, 3, 4, 64, 96))
     hi, lo = gouter_kernel._swizzle_rows(wk).transpose(3, 4).reshape(2, kf, g, n, kb * 32)
@@ -339,8 +339,8 @@ def test_cuda_tap_dots_match_plain_twin(cuda_device, shape, flip_t):
 @pytest.mark.parametrize("flip_t", [False, True])
 def test_cuda_weight_split_matches_twin(cuda_device, flip_t):
     wf = torch.randn(7, 16, 256, 128, device=cuda_device)
-    got = gouter_kernel.split_weights(wf, flip_t)
-    torch.testing.assert_close(got, gouter_kernel.split_weights_reference(wf, flip_t),
+    got = gouter_kernel.pack_weights(wf, flip_t)
+    torch.testing.assert_close(got, gouter_kernel.pack_weights_reference(wf, flip_t),
                                rtol=0, atol=0)
 
 
@@ -374,9 +374,21 @@ B2_FWD_SHAPES = [(g, b, q, x_dim, y_dim, kf, s, q - (kf - 1) * s)
                  for g, b, _, y_dim, x_dim, kf, s, q in B2_DX_SHAPES]
 
 
+def excess_over_one_bf16_ulp(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The bf16 form's tolerance against its twin: both round an f32 sum
+    once, taken in different orders, so where the two sums straddle a
+    rounding boundary they differ by one bf16 ulp of ``want`` (2^-8 to 2^-7
+    of it), plus the sums' own f32 error where y cancels to near zero
+    (1e-5 of max |want|). Returns the largest excess over that (<= 0: all
+    within)."""
+    got, want = got.double(), want.double()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+    return ((got - want).abs() - ulp - 1e-5 * want.abs().max()).max().item()
+
+
 def assert_within_one_bf16_ulp(got, want):
-    """The bf16 form's tolerance (``excess_over_one_bf16_ulp``)."""
-    excess = gouter_kernel.excess_over_one_bf16_ulp(got.cpu(), want.cpu())
+    """The bf16 form's tolerance (:func:`excess_over_one_bf16_ulp`)."""
+    excess = excess_over_one_bf16_ulp(got.cpu(), want.cpu())
     assert excess <= 0, (f"off by more than one bf16 ulp, by {excess:.3e}; max |diff| "
                          f"{(got.float() - want.float()).abs().max().item():.3e}")
 
@@ -387,8 +399,8 @@ def test_one_bf16_ulp_tolerance_counts_ulps():
     want = torch.tensor([1.0, 3.0, 100.0, 0.0])
     one = torch.tensor([1.0 + 2 ** -7, 3.0 - 2 ** -6, 100.0 + 0.5, 1e-4])
     two = torch.tensor([1.0 + 2 ** -6, 3.0, 100.0, 0.0])
-    assert gouter_kernel.excess_over_one_bf16_ulp(one, want) <= 0
-    assert gouter_kernel.excess_over_one_bf16_ulp(two, want) > 0
+    assert excess_over_one_bf16_ulp(one, want) <= 0
+    assert excess_over_one_bf16_ulp(two, want) > 0
 
 
 def test_bf16_twin_rounds_an_f32_sum_once():
@@ -407,7 +419,7 @@ def test_bf16_weight_pack_twin_is_flip_transpose_of_wf(flip_t):
     """The prologue's twin on bf16 weights, unswizzled: one part, K blocks of
     64, equal to the K-major operand bit for bit."""
     wf = torch.randn(3, 4, 128, 192).bfloat16()
-    wk = gouter_kernel.split_weights_reference(wf, flip_t)
+    wk = gouter_kernel.pack_weights_reference(wf, flip_t)
     parts, kf, g, kb, n, width = wk.shape
     assert wk.dtype == torch.bfloat16 and (parts, width) == (1, 64)
     assert (kf, g, kb * 64, n) == ((3, 4, 192, 128) if flip_t else (3, 4, 128, 192))
@@ -456,8 +468,8 @@ def test_cuda_bf16_tap_dots_match_plain_twin(cuda_device, shape, flip_t):
 @pytest.mark.parametrize("flip_t", [False, True])
 def test_cuda_bf16_weight_pack_matches_twin(cuda_device, flip_t):
     wf = torch.randn(7, 16, 256, 128, device=cuda_device).bfloat16()
-    got = gouter_kernel.split_weights(wf, flip_t)
-    assert torch.equal(got, gouter_kernel.split_weights_reference(wf, flip_t))
+    got = gouter_kernel.pack_weights(wf, flip_t)
+    assert torch.equal(got, gouter_kernel.pack_weights_reference(wf, flip_t))
 
 
 @pytest.mark.gpu
