@@ -32,17 +32,28 @@ Phases, each raising on failure:
    FastPitch trainer CLI at full width (batch 16), f32 and then ``--amp``:
    2 steps, then ``--resume`` for one more; finite losses, MAS launched once
    per step, and the serving CLI's loader gives the trainer's model.
-6. Reference checks: at a small width the card's text → wav and
+6. DiffWave path: ``diffwave_train`` at full width (30 layers × 64
+   channels, batch 16 × 62 frames, validation on), f32 and ``--amp``, 2
+   steps then ``--resume`` for a 3rd, the dataset's mels through B1 on the
+   card (twice a batch, checked); ``diffwave_infer --fast`` whole,
+   ``--chunked`` and ``--amp`` on the trained checkpoint. Grad-TTS serving:
+   the 16 sentences through ``gradtts_infer`` with a full-width Grad-TTS
+   and HiFi-GAN v1, batch 8, f32 and ``--amp``.
+7. Reference checks: at a small width the card's text → wav and
    copy-synthesis agree with the same weights on the CPU, and so do one
-   GAN step of the small (``TINY``) generator with the full MPD and MSD and
+   GAN step of the small (``TINY``) generator with the full MPD and MSD,
    one FastPitch train step of the golden's small FastPitch (dropout off),
-   each in f32 and in bf16 (bf16 by the yardstick of tests/test_torch_bf16.py
-   with the CPU's f32 step in the place of JAX's).
-7. Timing: text → wav at the ``bench.py`` shape (batch 8 × 128 tokens,
+   one small DiffWave train step and 6-step sample, and a small Grad-TTS
+   synthesis, each in f32 and in bf16 (bf16 by the yardstick of
+   tests/test_torch_bf16.py with the CPU's f32 run in the place of JAX's).
+8. Timing: text → wav at the ``bench.py`` shape (batch 8 × 128 tokens,
    1024 mel frames), f32 and bf16, in wall seconds per audio second; the v1
-   GAN step in ms and samples/s, and the FastPitch train step at the
+   GAN step in ms and samples/s, the FastPitch train step at the
    ``bench.py`` shape (16 × 128 tokens × 768 frames) in ms and mel frames/s,
-   each f32 and bf16 with a profiler split, idle share and launch count.
+   the DiffWave train step at its ``bench.py`` shape (16 × 62 frames) and
+   its 6-step sampler at 1 × 256 frames (and the 50-step one once), and
+   Grad-TTS → HiFi-GAN v1 (8 × 128 tokens, 10 steps, 1000 frames), each f32
+   and bf16 with a profiler split, idle share and launch count.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -843,30 +854,37 @@ def bf16_yardstick(what, card, cpu_bf16, cpu_f32):
     return e_card, e_cpu
 
 
-def check_bf16_step(label, metrics, params, grads, lr):
+def check_bf16_step(label, metrics, params, grads, lr, card_error=False):
     """A bf16 train step card vs CPU: metrics by :func:`bf16_yardstick`; the
     gradients by it too, as tests/test_torch_bf16.py's ``grads_yardstick``
     holds them against JAX (the whole gradient as one tensor, and the median
     over parameters of each one's |card - CPU| over its own bound);
     parameters within 2.5 lr + 1e-6 (an Adam step is about lr sign(g), so
     this bound alone would hold any gradient). ``metrics``/``params``/
-    ``grads`` map (amp, device type) to the step's outputs."""
+    ``grads`` map (amp, device type) to the step's outputs. With
+    ``card_error`` the whole gradient's bound takes the larger of the two
+    devices' own bf16 errors (each bf16 run against its f32 run), for a step
+    whose card rounds in bf16 at other places than the CPU (cuDNN's bf16
+    kernels against the CPU's f32 sums rounded once)."""
     worst_m = {}
     for k, v in metrics[(False, "cpu")].items():
         worst_m[k] = bf16_yardstick(f"{label} {k}", metrics[(True, "cuda")][k],
                                     metrics[(True, "cpu")][k], v)
-    ratios, e = [], np.zeros(3)
+    ratios, e = [], np.zeros(4)
     for k, v in grads[(False, "cpu")].items():
-        card, cb, cf = (t.double() for t in (grads[(True, "cuda")][k], grads[(True, "cpu")][k], v))
+        card, cb, cf, gf = (t.double() for t in (grads[(True, "cuda")][k], grads[(True, "cpu")][k],
+                                                 v, grads[(False, "cuda")][k]))
         leaf = np.array([(card - cb).abs().max().item(), (cb - cf).abs().max().item(),
-                         cf.abs().max().item()])
+                         cf.abs().max().item(), (card - gf).abs().max().item()])
         e = np.maximum(e, leaf)
         bound = 2 * leaf[1] + 1e-3 * leaf[2]
         ratios.append((leaf[0] / bound if bound > 0 else float(leaf[0] > 0), k))
     median = float(np.median([r for r, _ in ratios]))
-    if e[0] > 2 * e[1] + 1e-3 * e[2] or median > 1.0:
+    whole = 2 * (max(e[1], e[3]) if card_error else e[1]) + 1e-3 * e[2]
+    if e[0] > whole or median > 1.0:
         raise RuntimeError(f"bf16 {label} gradients: card vs CPU {e[0]:.3e} (CPU bf16 vs f32 "
-                           f"{e[1]:.3e}), median over parameters {median:.2f} of the bound")
+                           f"{e[1]:.3e}, card bf16 vs f32 {e[3]:.3e}), median over parameters "
+                           f"{median:.2f} of the bound")
     worst_p = 0.0
     for k, v in params[(True, "cpu")].items():
         d = (params[(True, "cuda")][k].double() - v.double()).abs().max().item()
@@ -879,7 +897,8 @@ def check_bf16_step(label, metrics, params, grads, lr):
     worst = max(ratios)
     log(f"reference: {label} bf16 card vs CPU: metrics (|card - CPU|, CPU bf16 vs f32) "
         + ", ".join(f"{k} {a:.2e}/{b:.2e}" for k, (a, b) in sorted(worst_m.items()))
-        + f"; gradients {e[0]:.2e}/{e[1]:.2e} (bound {2 * e[1] + 1e-3 * e[2]:.2e}), median "
+        + f"; gradients {e[0]:.2e}/{e[1]:.2e} (card bf16 vs f32 {e[3]:.2e}; bound "
+        f"{whole:.2e}), median "
         f"{median:.2f} of each parameter's bound, {sum(r > 1 for r, _ in ratios)} of "
         f"{len(ratios)} past it, the farthest {worst[1]} ({worst[0]:.2f}); max|param diff| "
         f"{worst_p:.2e} (bound {2.5 * lr + 1e-6:.2e})")
@@ -1283,6 +1302,399 @@ def phase_fastpitch_timing(torch, device, card, amp=False):
         f"{name} x{count} {ms:.1f} ms" for name, (count, ms) in runtime))
 
 
+def timed_calls(torch, fn, reps):
+    """One warm call, then ``reps`` synchronised calls of ``fn``: (median wall
+    s, walls, host issue times, the last call's result); the peak memory
+    counter is reset after the warm call."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, hosts = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        hosts.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return float(np.median(walls)), walls, hosts, out
+
+
+def trace_summary(torch, fn, wall, top=8):
+    """One traced call of ``fn``: busy time, idle share against ``wall``, the
+    device events, the host's kernel launches and the top kernels."""
+    busy, tops = device_breakdown(torch, fn, top=top)
+    return (f"card busy {busy:.2f} ms of {wall * 1e3:.2f} ms wall, idle share "
+            f"{1 - busy / (wall * 1e3):.3f}, {device_breakdown.launches} device events, "
+            f"{launch_counts()[0]} host kernel launches; top: "
+            + "; ".join(f"{ms:.2f} ms {name[:70]}" for ms, name in tops))
+
+
+def runs(walls):
+    return ", ".join(f"{w * 1e3:.1f}" for w in walls)
+
+
+DW_ADAM = dict(learning_rate=2e-4, beta1=0.9, beta2=0.999, eps=1e-8, grad_clip_norm=None)
+
+
+def phase_diffwave_cli(torch, device, card):
+    """DiffWave through its CLIs at full width (30 layers × 64 channels):
+    ``diffwave_train`` on the synthetic wavs (batch 16 × 62 frames, with
+    validation on the same list), 2 steps then ``--resume`` for a 3rd, f32
+    and ``--amp``; the dataset computes each batch's two mels on the card
+    (B1 twice a batch, training and validation); then ``diffwave_infer
+    --fast``, whole and ``--chunked``, on the trained checkpoint. Returns
+    B1's launches per batch."""
+    from scipy.io import wavfile
+
+    from neuraltexttospeech_torch.cli import diffwave_infer, diffwave_train
+    from neuraltexttospeech_torch.ops import mel_kernel
+
+    filelist = training_wavs()
+    for tag, flags in (("f32", []), ("bf16", ["--amp"])):
+        out = WORK / f"dw_train_{tag}"
+        args = ["-o", str(out), "--training-files", str(filelist), "--validation-files",
+                str(filelist), "--steps-per-epoch", "1"] + flags
+        mel_kernel.fused_frames_to_mel.launches = 0
+        t0 = time.perf_counter()
+        first = diffwave_train.main(args + ["--epochs", "2"])
+        resumed = diffwave_train.main(args + ["--epochs", "3", "--resume"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        b1 = mel_kernel.fused_frames_to_mel.launches
+        trainer = resumed["trainer"]
+        if (first["steps"], resumed["steps"], trainer.step) != (2, 1, 3):
+            raise RuntimeError(f"DiffWave trainer ({tag}) ran {first['steps']} + "
+                               f"{resumed['steps']} steps, ended at step {trainer.step}")
+        for run in (first, resumed):
+            if not run["metrics"] or not all(np.isfinite(v) for v in
+                                             [*run["metrics"].values(), *run["val"].values()]):
+                raise RuntimeError(f"non-finite DiffWave losses ({tag}): {run}")
+        batches = 3 + 3  # 3 training steps, one validation batch after each of 3 epochs
+        log(f"DiffWave training path ({tag}): full width, batch 16 x 62 frames, 3 steps (2, "
+            f"then --resume 1) and 3 validation passes in {wall:.1f} s with set-up and "
+            f"checkpoints; B1 launches {b1} ({b1 / batches:g} per batch); last losses "
+            + " ".join(f"{k}={v:.4f}" for k, v in sorted(resumed["metrics"].items()))
+            + f", val {resumed['val']['l1_noise']:.4f} [{card}]")
+        if b1 != 2 * batches:
+            raise RuntimeError(f"the DiffWave dataset ({tag}) launched B1 {b1} times for "
+                               f"{batches} batches; expected 2 a batch")
+        if any(p.dtype != torch.float32 for p in trainer.model.parameters()):
+            raise RuntimeError(f"the DiffWave {tag} trainer holds parameters that are not f32")
+
+    mels = WORK / "dw_mels"
+    mels.mkdir()
+    rng = np.random.default_rng(12)
+    for name, frames in (("a", 150), ("b", 62)):
+        np.save(mels / f"{name}.npy", rng.standard_normal((frames, 80)).astype(np.float32))
+    for flags in (["--fast"], ["--fast", "--chunked"], ["--fast", "--amp"]):
+        out = WORK / ("dw_wavs" + "_".join(f.strip("-") for f in flags))
+        t0 = time.perf_counter()
+        diffwave_infer.main(["--checkpoint", str(WORK / "dw_train_f32" / "checkpoints" / "3"),
+                             "-i", str(mels), "-o", str(out)] + flags)
+        torch.cuda.synchronize()
+        for name, frames in (("a", 150), ("b", 62)):
+            sr, audio = wavfile.read(out / f"{name}.wav")
+            if sr != SR or audio.shape != (frames * HOP,) or not np.isfinite(audio).all():
+                raise RuntimeError(f"diffwave_infer {flags}: {name}.wav has {audio.shape}")
+        log(f"DiffWave serving path: diffwave_infer {' '.join(flags)} of 150 + 62 frames in "
+            f"{time.perf_counter() - t0:.2f} s (checkpoint load included); wavs of the mels' "
+            f"lengths, finite")
+    return b1 // batches
+
+
+def phase_diffwave_timing(torch, device, card):
+    """The DiffWave train step at bench.py's shape (16 × 62 frames = 253,952
+    samples, full width, Adam; f32 with TF32 off and bf16): wall (median of
+    5), samples/s, the profiler split and peak memory; then the 6-step fast
+    sampler at 1 × 256 frames (median of 3) and the 50-step one once."""
+    from neuraltexttospeech_torch.cli.diffwave_train import make_loss_fn
+    from neuraltexttospeech_torch.models.diffwave import DiffWave, DiffWaveConfig, reverse_sample
+    from neuraltexttospeech_torch.nn.precision import compute_dtype
+    from neuraltexttospeech_torch.train.harness import Trainer, TrainerConfig
+    from neuraltexttospeech_torch.train.state import OptimizerConfig
+
+    B, F = 16, 62
+    rng = np.random.default_rng(7)
+    batch = {"audio": torch.as_tensor((rng.standard_normal((B, F * HOP, 1)) * 0.1)
+                                      .astype(np.float32), device=device),
+             "mel": torch.as_tensor(rng.standard_normal((B, F, 80)).astype(np.float32),
+                                    device=device)}
+    mel = torch.as_tensor(rng.standard_normal((1, 256, 80)).astype(np.float32), device=device)
+    for amp in (False, True):
+        mode = "bf16 (--amp)" if amp else "f32 (TF32 off)"
+        dtype = torch.bfloat16 if amp else None
+        torch.manual_seed(0)
+        trainer = Trainer(make_loss_fn(False), DiffWave(DiffWaveConfig()),
+                          TrainerConfig(optimizer=OptimizerConfig(**DW_ADAM)), device, dtype=dtype)
+        step = lambda: trainer.train_step(batch)  # noqa: E731
+        wall, walls, hosts, metrics = timed_calls(torch, step, 5)
+        if not all(np.isfinite(float(v)) for v in metrics.values()):
+            raise RuntimeError(f"non-finite DiffWave metrics at the bench shape: {metrics}")
+        log(f"DiffWave train step {mode}, full width: batch {B} x {F} frames = {B * F * HOP} "
+            f"samples: wall {wall * 1e3:.1f} ms (runs {runs(walls)}; host done issuing after "
+            f"{runs(hosts)}) = {B * F * HOP / wall:.0f} samples/s; peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+        log(f"  trace ({mode}): " + trace_summary(torch, step, wall))
+
+        model = trainer.model.eval()
+
+        def sample(fast=True):
+            gen = torch.Generator(device=device).manual_seed(0)
+            with compute_dtype(dtype):
+                return reverse_sample(model, mel, fast_sampling=fast, generator=gen)
+
+        wall, walls, _, audio = timed_calls(torch, sample, 3)
+        n = mel.shape[1] * HOP
+        if audio.shape != (1, n) or not torch.isfinite(audio).all():
+            raise RuntimeError(f"the DiffWave sampler gave {tuple(audio.shape)}")
+        t0 = time.perf_counter()
+        sample(fast=False)
+        torch.cuda.synchronize()
+        slow = time.perf_counter() - t0
+        log(f"DiffWave fast sampler {mode}, 6 steps, 1 x 256 frames = {n} samples: wall "
+            f"{wall * 1e3:.1f} ms (runs {runs(walls)}) = {n / wall:.0f} samples/s; 50 steps "
+            f"once {slow * 1e3:.1f} ms = {n / slow:.0f} samples/s [{card}]")
+        log(f"  trace ({mode}, 6 steps): " + trace_summary(torch, sample, wall))
+        del trainer, model
+
+
+def random_gradtts(cfg, seed, device, frames_per_token, gain=0.0):
+    """Random Grad-TTS (``random_init_``) whose duration head starts near
+    ``frames_per_token`` frames a token, with its ReZero gains at ``gain``
+    (flax initialises them to 0; the attention runs all the same). A random
+    score does not pull the sampler's state back, so the state grows at
+    every step; the linear attention is cubic in it, and at gains of ~1
+    overflows f32 within 10 steps."""
+    import torch
+    from neuraltexttospeech_torch.models.gradtts import GradTTS
+
+    model = random_init_(GradTTS(cfg).to(device), seed, device)
+    with torch.no_grad():
+        model.encoder.proj_w.proj.bias.fill_(float(np.log(frames_per_token)))
+        for name, p in model.named_parameters():
+            if name.endswith(".g"):
+                p.fill_(gain)
+    return model.eval()
+
+
+def phase_gradtts_bench(torch, device, card):
+    """Grad-TTS → HiFi-GAN v1 at full width: batch 8 × 128 interspersed random
+    tokens, 10 reverse steps, ``max_mel_len`` 1000 (the duration head's bias
+    set so every utterance reaches the cap), f32 (TF32 off) and bf16: wall
+    (median of 3), RTF over the real frames, the profiler split."""
+    from neuraltexttospeech_torch.models.gradtts import GradTTSConfig
+    from neuraltexttospeech_torch.models.hifigan import Generator, HiFiGANConfig
+    from neuraltexttospeech_torch.nn.precision import compute_dtype
+
+    cfg = GradTTSConfig()
+    model = random_gradtts(cfg, 3, device, frames_per_token=16.0)
+    gen = random_init_(Generator(HiFiGANConfig.v1()).to(device).eval(), 4, device)
+    rng = np.random.default_rng(5)
+    text = np.full((8, 128), cfg.n_symbols - 1, np.int64)  # blanks between the symbols
+    text[:, 1::2] = rng.integers(1, cfg.n_symbols - 1, (8, 64))
+    text, lens = torch.as_tensor(text, device=device), torch.full((8,), 128, device=device)
+    out = {}
+    for amp in (False, True):
+        mode = "bf16 (--amp)" if amp else "f32 (TF32 off)"
+        dtype = torch.bfloat16 if amp else None
+
+        def run():
+            gen_ = torch.Generator(device=device).manual_seed(0)
+            with torch.inference_mode(), compute_dtype(dtype):
+                _, dec, _, ylen = model(text, lens, 10, max_mel_len=1000, generator=gen_)
+                return ylen, gen(dec.float())
+
+        wall, walls, _, (ylen, audio) = timed_calls(torch, run, 3)
+        frames = int(ylen.sum())
+        if frames != 8 * 1000 or not torch.isfinite(audio.float()).all():
+            raise RuntimeError(f"gradtts2wav bench: {frames} frames, finite "
+                               f"{bool(torch.isfinite(audio.float()).all())}")
+        audio_s = frames * HOP / SR
+        log(f"gradtts2wav {mode}: full-width Grad-TTS + HiFi-GAN v1, batch 8 x 128 tokens, "
+            f"10 steps, {frames} frames = {audio_s:.3f} s audio: wall {wall:.4f} s (runs "
+            f"{runs(walls)} ms) = RTF {wall / audio_s:.3e}; peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+        log(f"  trace ({mode}): " + trace_summary(torch, run, wall))
+        out[mode] = wall
+    return out
+
+
+def phase_gradtts_serve(torch, device, card):
+    """The 16 ``SENTENCES`` through ``gradtts_infer.main`` with a full-width
+    Grad-TTS and a HiFi-GAN v1 checkpoint (random weights), batch 8, f32 and
+    ``--amp``: a mel and a wav of ``ylen · hop`` samples per sentence, finite."""
+    from scipy.io import wavfile
+
+    from neuraltexttospeech_torch.cli import gradtts_infer
+    from neuraltexttospeech_torch.models.gradtts import GradTTSConfig
+    from neuraltexttospeech_torch.models.hifigan import Generator, HiFiGANConfig
+    from neuraltexttospeech_torch.models.registry import save_checkpoint
+
+    cfg = GradTTSConfig()
+    gt_dir = save_checkpoint(WORK / "gt_serve" / "gradtts", "GradTTS", cfg,
+                             random_gradtts(cfg, 6, device, frames_per_token=3.0).state_dict())
+    hg_dir = save_checkpoint(WORK / "gt_serve" / "hifigan", "HiFiGAN", HiFiGANConfig.v1(),
+                             random_init_(Generator(HiFiGANConfig.v1()).to(device), 7,
+                                          device).state_dict())
+    text_file = WORK / "gt_sentences.txt"
+    text_file.write_text("\n".join(SENTENCES) + "\n")
+    for tag, flags in (("f32", []), ("bf16", ["--amp"])):
+        out = WORK / f"gt_serve_{tag}"
+        t0 = time.perf_counter()
+        gradtts_infer.main(["--checkpoint", str(gt_dir), "--hifigan-checkpoint", str(hg_dir),
+                            "-i", str(text_file), "-o", str(out), "-bs", "8"] + flags)
+        torch.cuda.synchronize()
+        frames = 0
+        for j in range(len(SENTENCES)):
+            mel = np.load(out / f"utt_{j:04d}_mel.npy")
+            sr, audio = wavfile.read(out / f"utt_{j:04d}.wav")
+            if (mel.ndim != 2 or mel.shape[1] != 80 or not np.isfinite(mel).all() or sr != SR
+                    or audio.shape != (mel.shape[0] * HOP,)):
+                raise RuntimeError(f"gradtts_infer ({tag}) utterance {j}: mel {mel.shape}, "
+                                   f"audio {audio.shape}")
+            frames += mel.shape[0]
+        log(f"Grad-TTS serving path ({tag}): {len(SENTENCES)} sentences, batch 8, 10 steps, "
+            f"{frames} frames in {time.perf_counter() - t0:.2f} s (first calls, checkpoint "
+            f"load included); mels and wavs of ylen · hop samples, finite [{card}]")
+
+
+def sampled_close(what, card, cpu):
+    """A sampled output card vs CPU at 1e-5 of its size (rtol 1e-5): the
+    samplers multiply each step's f32 rounding (tests/test_torch_gradtts.py)."""
+    card, cpu = (np.asarray(a, np.float64) for a in (card, cpu))
+    np.testing.assert_allclose(card, cpu, atol=1e-5 * np.abs(cpu).max(), rtol=1e-5,
+                               err_msg=what)
+    return np.abs(card - cpu).max()
+
+
+def phase_diffwave_reference(torch, device):
+    """A small DiffWave (6 layers × 16 channels, batch 3 × 8 frames): one
+    Trainer step card vs CPU from the same weights, steps and noise, at the
+    trainer tolerances (metrics rtol 2e-4, parameters rtol 3e-3 / atol 3e-5),
+    and a 6-step sample with the same start and noise at 1e-5 of its size;
+    then both in bf16, by :func:`check_bf16_step` (its whole gradient
+    against the larger of the two devices' own bf16 errors: one bias,
+    ``skip_projection.bias``, sets it, and there the card's bf16 rounding
+    puts it up to 2.3 times the CPU's own error from the CPU's bf16 run) and
+    the yardstick."""
+    from neuraltexttospeech_torch.cli.diffwave_train import make_loss_fn
+    from neuraltexttospeech_torch.models.diffwave import DiffWave, DiffWaveConfig, reverse_sample
+    from neuraltexttospeech_torch.nn.precision import compute_dtype
+    from neuraltexttospeech_torch.train.harness import Trainer, TrainerConfig
+    from neuraltexttospeech_torch.train.state import OptimizerConfig
+
+    cfg = DiffWaveConfig(residual_layers=6, residual_channels=16, crop_mel_frames=8)
+    torch.manual_seed(2)
+    model = DiffWave(cfg)
+    torch.nn.init.normal_(model.output_projection.weight, 0.0, 0.2)  # zero-init hides the net
+    weights = model.state_dict()
+    rng = np.random.default_rng(9)
+    batch = {"audio": (rng.standard_normal((3, 8 * HOP, 1)) * 0.1).astype(np.float32),
+             "mel": rng.standard_normal((3, 8, 80)).astype(np.float32),
+             "t": np.asarray([2, 25, 47]), "noise": rng.standard_normal((3, 8 * HOP))
+             .astype(np.float32)}
+    audio0 = rng.standard_normal((3, 8 * HOP)).astype(np.float32)
+    noise = rng.standard_normal((6, 3, 8 * HOP)).astype(np.float32)
+    cpu = torch.device("cpu")
+    steps, samples = {}, {}
+    for amp in (False, True):
+        for dev in (device, cpu):
+            m = DiffWave(cfg)
+            m.load_state_dict(weights)
+            trainer = Trainer(make_loss_fn(False), m, TrainerConfig(
+                optimizer=OptimizerConfig(**dict(DW_ADAM, learning_rate=1e-3))), dev,
+                dtype=torch.bfloat16 if amp else None)
+            metrics = trainer.train_step({k: torch.as_tensor(v, device=dev)
+                                          for k, v in batch.items()})
+            names = [n for n, p in m.named_parameters() if p.requires_grad]
+            steps[(amp, dev.type)] = (
+                {k: float(v) for k, v in metrics.items()},
+                {k: v.detach().cpu().clone() for k, v in m.state_dict().items()},
+                {n: (mu / (1.0 - 0.9)).cpu() for n, mu in zip(names, trainer.optimizer.mu)})
+            m.load_state_dict(weights)  # the sampler starts from the same weights
+            with compute_dtype(torch.bfloat16 if amp else None):
+                samples[(amp, dev.type)] = reverse_sample(
+                    m.eval(), torch.as_tensor(batch["mel"], device=dev), fast_sampling=True,
+                    audio0=torch.as_tensor(audio0, device=dev),
+                    noise=[torch.as_tensor(z, device=dev) for z in noise]).cpu().numpy()
+    out = {dev: steps[(False, dev)] for dev in ("cuda", "cpu")}
+    for k, v in out["cpu"][0].items():
+        np.testing.assert_allclose(out["cuda"][0][k], v, rtol=2e-4, err_msg=k)
+    worst_p = 0.0
+    for k, v in out["cpu"][1].items():
+        np.testing.assert_allclose(out["cuda"][1][k].numpy(), v.numpy(), rtol=3e-3, atol=3e-5,
+                                   err_msg=k)
+        worst_p = max(worst_p, (out["cuda"][1][k] - v).abs().max().item())
+    worst_m = max(abs(out["cuda"][0][k] - v) / max(abs(v), 1e-12) for k, v in out["cpu"][0].items())
+    d = sampled_close("DiffWave 6-step sample", samples[(False, "cuda")], samples[(False, "cpu")])
+    log(f"reference: small DiffWave train step card vs CPU: max relative metric diff "
+        f"{worst_m:.2e}, max|param diff| {worst_p:.2e}; 6-step sample max|diff| {d:.2e}")
+    check_bf16_step("small DiffWave train step", *({k: v[i] for k, v in steps.items()}
+                                                   for i in range(3)), 1e-3, card_error=True)
+    e = bf16_yardstick("DiffWave 6-step sample", samples[(True, "cuda")],
+                       samples[(True, "cpu")], samples[(False, "cpu")])
+    log(f"reference: small DiffWave 6-step sample bf16 card vs CPU {e[0]:.2e}, CPU bf16 vs "
+        f"f32 {e[1]:.2e}")
+
+
+def phase_gradtts_reference(torch, device):
+    """A small Grad-TTS (the goldens' widths, the english_basic symbol set):
+    synthesis with the same noise and 2 steps card vs CPU: the same lengths
+    and alignment, the encoder's mel within 1e-4 (as text → wav's check) and
+    the decoder's within 1e-5 of its size (the ReZero gains at 0.005: at
+    0.02 these random weights make the mel so ill-conditioned that a 1e-7
+    relative change of the weights moves it by 3e-3, past that bound);
+    then bf16: the encoder and the sampler (from the f32 prior) by the
+    yardstick, and the synthesis's lengths."""
+    from neuraltexttospeech_torch.models.gradtts import GradTTSConfig
+    from neuraltexttospeech_torch.nn.precision import compute_dtype
+
+    cfg = GradTTSConfig(n_enc_channels=32, filter_channels=64, filter_channels_dp=32,
+                        n_enc_layers=2, dec_dim=8)
+    weights = random_gradtts(cfg, 11, torch.device("cpu"), 2.0, gain=0.005).state_dict()
+    rng = np.random.default_rng(13)
+    x = rng.integers(1, cfg.n_symbols - 1, (3, 24))
+    xl = np.asarray([24, 17, 9])
+    noise = rng.standard_normal((3, 80, 64)).astype(np.float32)
+    cpu = torch.device("cpu")
+    res = {}
+    for dev in (device, cpu):
+        model = random_gradtts(cfg, 11, dev, 2.0)
+        model.load_state_dict(weights)
+        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        f32 = model(t(x), t(xl), 2, max_mel_len=64, noise=t(noise))
+        mu = f32[0].transpose(1, 2)
+        mask = torch.arange(64, device=dev)[None] < f32[3][:, None]
+        with torch.no_grad(), compute_dtype(torch.bfloat16):
+            enc = model.encoder(t(x), t(xl))[:2]
+            dec = model.decoder.reverse_diffusion(mu + t(noise), mask, mu, 2)
+            full = model(t(x), t(xl), 2, max_mel_len=64, noise=t(noise))
+        res[dev.type] = ([a.cpu() for a in f32], [a.float().cpu() for a in enc], dec.cpu(),
+                         full[3].cpu())
+    (gf, ge, gd, gl), (cf, ce, cd, cl) = res["cuda"], res["cpu"]
+    np.testing.assert_array_equal(gf[3].numpy(), cf[3].numpy())  # lengths
+    np.testing.assert_array_equal(gf[2].numpy(), cf[2].numpy())  # alignment
+    np.testing.assert_allclose(gf[0].numpy(), cf[0].numpy(), atol=1e-4, rtol=0, err_msg="enc")
+    d = sampled_close("Grad-TTS synthesis dec", gf[1], cf[1])
+    # the CPU's own bf16 error, against its f32 run from the same inputs
+    with torch.no_grad():
+        model = random_gradtts(cfg, 11, cpu, 2.0)
+        model.load_state_dict(weights)
+        enc32 = model.encoder(torch.as_tensor(x), torch.as_tensor(xl))[:2]
+        mu = cf[0].transpose(1, 2)
+        mask = torch.arange(64)[None] < cf[3][:, None]
+        dec32 = model.decoder.reverse_diffusion(mu + torch.as_tensor(noise), mask, mu, 2)
+    e = [bf16_yardstick(f"Grad-TTS encoder {n}", g, c, f) for n, g, c, f in
+         zip(("mu_x", "logw"), ge, ce, enc32)]
+    e.append(bf16_yardstick("Grad-TTS sampler", gd, cd, dec32))
+    log(f"reference: small Grad-TTS synthesis card vs CPU: max|enc diff| "
+        f"{(gf[0] - cf[0]).abs().max().item():.2e}, max|dec diff| {d:.2e} (max |dec| "
+        f"{cf[1].abs().max().item():.2f}), equal lengths; bf16 card vs CPU (|card - CPU|, CPU "
+        f"bf16 vs f32): mu_x {e[0][0]:.2e}/{e[0][1]:.2e}, logw {e[1][0]:.2e}/{e[1][1]:.2e}, "
+        f"sampler {e[2][0]:.2e}/{e[2][1]:.2e}; bf16 lengths card {gl.tolist()}, CPU "
+        f"{cl.tolist()}")
+
+
 def main():
     import torch
 
@@ -1312,6 +1724,8 @@ def main():
         train_bf16 = phase_training(torch, device, smi, amp=True)
         phase_fine_tuning(torch, device, smi)
         fastpitch = phase_fastpitch_training(torch, device, smi)
+        diffwave_b1 = phase_diffwave_cli(torch, device, smi)
+        phase_gradtts_serve(torch, device, smi)
         # launches per step on the training paths (B1 and B2: the GAN step,
         # f32 and bf16; MAS: the FastPitch step); serving's and dataset
         # prep's B1 counts are checked in their phases
@@ -1321,16 +1735,21 @@ def main():
         log(f"B1 launches: serving path {serving}, GAN training path {train['b1']} (bf16 "
             f"{train_bf16['b1']}), FastPitch dataset prep {fastpitch['b1_prep']}; B2 launches: "
             f"GAN training f32 {train['b2']}, bf16 {train_bf16['b2']}; MAS launches: FastPitch "
-            f"training f32 {fastpitch['f32']['mas']}, bf16 {fastpitch['bf16']['mas']}")
+            f"training f32 {fastpitch['f32']['mas']}, bf16 {fastpitch['bf16']['mas']}; B1 "
+            f"launches per DiffWave training batch {diffwave_b1}")
         phase_reference(torch, device)
         phase_gan_reference(torch, device)
         phase_fastpitch_reference(torch, device)
+        phase_diffwave_reference(torch, device)
+        phase_gradtts_reference(torch, device)
         phase_timing(torch, device, smi)
         phase_train_timing(torch, train["trainer"], smi)
         phase_train_timing(torch, train_bf16["trainer"], smi)
         del train, train_bf16, fastpitch
         phase_fastpitch_timing(torch, device, smi)
         phase_fastpitch_timing(torch, device, smi, amp=True)
+        phase_diffwave_timing(torch, device, smi)
+        phase_gradtts_bench(torch, device, smi)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(json.dumps({"kernels": [b1, b2, b2_bf16, mas]}))

@@ -9,7 +9,10 @@ once converted with ``np.asarray``; nothing here imports flax. Mappings:
 - Conv ``kernel [K, Cin, Cout]`` → ``Conv1d.weight [Cout, Cin, K]``.
 - ``ConvTranspose(transpose_kernel=True)`` ``kernel [K, out, in]`` →
   ``ConvTranspose1d.weight [in, out, K]`` (a transpose, no spatial flip;
-  the padding lives in ``models/hifigan.py::transpose_padding``).
+  the padding lives in ``models/hifigan.py::transpose_padding``); in 2-D
+  ``kernel [Kh, Kw, out, in]`` → ``ConvTranspose2d.weight [in, out, Kh, Kw]``.
+- 2-D Conv ``kernel [Kh, Kw, Cin, Cout]`` → ``Conv2d.weight [Cout, Cin, Kh, Kw]``.
+- GroupNorm ``scale``/``bias`` → ``weight``/``bias``.
 - LayerNorm ``scale``/``bias`` → ``weight``/``bias`` (the eps of 1e-3 is
   the module's).
 - Embed ``embedding`` → ``Embedding.weight``.
@@ -39,7 +42,8 @@ import numpy as np
 import torch
 
 __all__ = ["fastpitch_from_flax", "fastpitch_train_from_flax", "generator_from_flax",
-           "fold_weight_norm", "hifigan_train_from_flax"]
+           "fold_weight_norm", "hifigan_train_from_flax", "diffwave_from_flax",
+           "gradtts_from_flax"]
 
 _WN_EPS = 1e-12
 _WN = ".parametrizations.weight."
@@ -306,3 +310,128 @@ def hifigan_train_from_flax(gen: dict, mpd: dict, msd: dict, msd_stats: dict):
     rs.finish()
     stats.finish()
     return gen_sd, mpd_sd, msd_sd
+
+
+def _conv2d(sd, key, r: _Reader, *path):
+    sd[f"{key}.weight"] = _t(r.pop(*path, "kernel").transpose(3, 2, 0, 1))
+    if "bias" in r.node(*path):
+        sd[f"{key}.bias"] = _t(r.pop(*path, "bias"))
+
+
+def diffwave_from_flax(params: dict) -> Dict[str, torch.Tensor]:
+    """flax ``DiffWave`` params → ``models.diffwave.DiffWave`` state dict
+    (conditional or unconditional, read from the tree). Raises on any leaf
+    it does not consume."""
+    tree = _params(_plain(params))
+    r = _Reader(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, "input_projection", r, "Conv_0")
+    _dense(sd, "diffusion_embedding.projection1", r, "DiffusionEmbedding_0", "Dense_0")
+    _dense(sd, "diffusion_embedding.projection2", r, "DiffusionEmbedding_0", "Dense_1")
+    if "SpectrogramUpsampler_0" in tree:
+        for i in range(2):  # kernel [32, 3, out, in] -> [in, out, 32, 3]
+            _conv2d(sd, f"spectrogram_upsampler.conv{i + 1}", r, "SpectrogramUpsampler_0",
+                    f"ConvTranspose_{i}")
+    for i in range(r.count(prefix="ResidualBlock")):
+        blk, key = f"ResidualBlock_{i}", f"residual_layers.{i}"
+        conditional = r.count(blk, prefix="Conv") == 3
+        _dense(sd, f"{key}.diffusion_projection", r, blk, "Dense_0")
+        _conv(sd, f"{key}.dilated_conv", r, blk, "Conv_0")
+        if conditional:
+            _conv(sd, f"{key}.conditioner_projection", r, blk, "Conv_1")
+        _conv(sd, f"{key}.output_projection", r, blk, f"Conv_{2 if conditional else 1}")
+    _conv(sd, "skip_projection", r, "Conv_1")
+    _conv(sd, "output_projection", r, "Conv_2")
+    r.finish()
+    return sd
+
+
+def _gradtts_encoder(sd, r: _Reader):
+    enc = ("encoder",)
+    sd["encoder.emb.weight"] = _t(r.pop(*enc, "Embed_0", "embedding"))
+    for i in range(3):
+        _conv(sd, f"encoder.prenet.convs.{i}", r, *enc, "ConvReluNormPrenet_0", f"Conv_{i}")
+        _layer_norm(sd, f"encoder.prenet.norms.{i}", r, *enc, "ConvReluNormPrenet_0",
+                    f"LayerNorm_{i}")
+    _conv(sd, "encoder.prenet.proj", r, *enc, "ConvReluNormPrenet_0", "Conv_3")
+    n_layers = r.count(*enc, prefix="RelPositionMultiHeadAttention")
+    convs = 0
+    if r.count(*enc, prefix="Conv") == 2:  # the speaker projection comes first
+        _conv(sd, "encoder.spk_proj", r, *enc, "Conv_0")
+        convs = 1
+    for i in range(n_layers):
+        attn, key = (*enc, f"RelPositionMultiHeadAttention_{i}"), f"encoder.attn_layers.{i}"
+        for j, name in enumerate(("conv_q", "conv_k", "conv_v", "conv_o")):
+            _conv(sd, f"{key}.{name}", r, *attn, f"Conv_{j}")
+        sd[f"{key}.emb_rel_k"] = _t(r.pop(*attn, "emb_rel_k"))
+        sd[f"{key}.emb_rel_v"] = _t(r.pop(*attn, "emb_rel_v"))
+        _layer_norm(sd, f"encoder.norms1.{i}", r, *enc, f"LayerNorm_{2 * i}")
+        _conv(sd, f"encoder.ffn_layers.{i}.conv1", r, *enc, f"EncFFN_{i}", "Conv_0")
+        _conv(sd, f"encoder.ffn_layers.{i}.conv2", r, *enc, f"EncFFN_{i}", "Conv_1")
+        _layer_norm(sd, f"encoder.norms2.{i}", r, *enc, f"LayerNorm_{2 * i + 1}")
+    _conv(sd, "encoder.proj_m", r, *enc, f"Conv_{convs}")
+    dp = (*enc, "DurationPredictor_0")
+    for i in range(2):
+        _conv(sd, f"encoder.proj_w.convs.{i}", r, *dp, f"Conv_{i}")
+        _layer_norm(sd, f"encoder.proj_w.norms.{i}", r, *dp, f"LayerNorm_{i}")
+    _conv(sd, "encoder.proj_w.proj", r, *dp, "Conv_2")
+
+
+def _unet_block(sd, key, r: _Reader, *path):
+    _conv2d(sd, f"{key}.conv", r, *path, "Conv_0")
+    _layer_norm(sd, f"{key}.norm", r, *path, "GroupNorm_0")
+
+
+def _unet_resnet(sd, key, r: _Reader, *path):
+    _unet_block(sd, f"{key}.block1", r, *path, "UNetBlock_0")
+    _dense(sd, f"{key}.mlp", r, *path, "Dense_0")
+    _unet_block(sd, f"{key}.block2", r, *path, "UNetBlock_1")
+    if "Conv_0" in r.node(*path):
+        _conv2d(sd, f"{key}.res_conv", r, *path, "Conv_0")
+
+
+def _rezero(sd, key, r: _Reader, *path):
+    sd[f"{key}.g"] = _t(r.pop(*path, "g"))
+    _conv2d(sd, f"{key}.attn.to_qkv", r, *path, "LinearAttention2D_0", "Conv_0")
+    _conv2d(sd, f"{key}.attn.to_out", r, *path, "LinearAttention2D_0", "Conv_1")
+
+
+def gradtts_from_flax(params: dict) -> Dict[str, torch.Tensor]:
+    """flax ``GradTTS`` params → ``models.gradtts.GradTTS`` state dict (the
+    speaker table and projections when the tree has them). Raises on any
+    leaf it does not consume."""
+    tree = _params(_plain(params))
+    r = _Reader(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    if "spk_emb" in tree:
+        sd["spk_emb.weight"] = _t(r.pop("spk_emb", "embedding"))
+    _gradtts_encoder(sd, r)
+    est, key = ("decoder", "estimator"), "decoder.estimator"
+    _dense(sd, f"{key}.time_mlp1", r, *est, "Dense_0")
+    _dense(sd, f"{key}.time_mlp2", r, *est, "Dense_1")
+    if r.count(*est, prefix="Dense") == 4:
+        _dense(sd, f"{key}.spk_mlp.0", r, *est, "Dense_2")
+        _dense(sd, f"{key}.spk_mlp.1", r, *est, "Dense_3")
+    n_levels = r.count(*est, prefix="ConvTranspose") + 1
+    res = att = 0
+    for i in range(n_levels):
+        _unet_resnet(sd, f"{key}.downs.{i}.0", r, *est, f"UNetResnetBlock_{res}")
+        _unet_resnet(sd, f"{key}.downs.{i}.1", r, *est, f"UNetResnetBlock_{res + 1}")
+        _rezero(sd, f"{key}.downs.{i}.2", r, *est, f"ReZeroAttention_{att}")
+        res, att = res + 2, att + 1
+        if i < n_levels - 1:
+            _conv2d(sd, f"{key}.downs.{i}.3", r, *est, f"Conv_{i}")
+    _unet_resnet(sd, f"{key}.mid.0", r, *est, f"UNetResnetBlock_{res}")
+    _rezero(sd, f"{key}.mid.1", r, *est, f"ReZeroAttention_{att}")
+    _unet_resnet(sd, f"{key}.mid.2", r, *est, f"UNetResnetBlock_{res + 1}")
+    res, att = res + 2, att + 1
+    for i in range(n_levels - 1):
+        _unet_resnet(sd, f"{key}.ups.{i}.0", r, *est, f"UNetResnetBlock_{res}")
+        _unet_resnet(sd, f"{key}.ups.{i}.1", r, *est, f"UNetResnetBlock_{res + 1}")
+        _rezero(sd, f"{key}.ups.{i}.2", r, *est, f"ReZeroAttention_{att}")
+        _conv2d(sd, f"{key}.ups.{i}.3", r, *est, f"ConvTranspose_{i}")  # [4, 4, out, in]
+        res, att = res + 2, att + 1
+    _unet_block(sd, f"{key}.final_block", r, *est, "UNetBlock_0")
+    _conv2d(sd, f"{key}.final_conv", r, *est, f"Conv_{n_levels - 1}")
+    r.finish()
+    return sd

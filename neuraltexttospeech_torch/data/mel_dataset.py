@@ -5,9 +5,15 @@ Counterpart of ``neuraltexttospeech_tpu/data/mel_dataset.py::VocoderDataset``
 the clip is shorter), drawn with numpy in the same order and from the same
 seeds, so a seed gives the same crops as the JAX dataset. A batch holds
 the crops, the generator-input mel (fmin..fmax) and the loss-target mel
-(``fmax_for_loss``), computed on the host through the port's
+(``fmax_for_loss``), computed per batch through the port's
 ``mel_spectrogram`` with HiFi-GAN's centered reflect padding; with
 ``audio_only=True`` only the crops (the GAN step computes both mels).
+
+The JAX dataset computes the mels on its default device, which on the TPU
+runs the Pallas log-mel kernel. Here ``device=`` says where: on a CUDA
+device both mels go through kernel B1 (``ops/mel_kernel.py``) and stay on
+the card as tensors; with no device they are computed on the host, by the
+plain rFFT path, as numpy arrays.
 
 In fine-tuning mode (``fine_tuning_mel_dir``, ``mel_dataset.py:83-103,
 143-151`` of the JAX package) the generator's input mel is an acoustic
@@ -48,8 +54,10 @@ class VocoderDataset:
         fmax_for_loss: Optional[float] = None,
         fine_tuning_mel_dir: Optional[str] = None,
         seed: int = 1234,
+        device=None,
     ):
         self.fine_tuning_mel_dir = fine_tuning_mel_dir
+        self.device = None if device is None else torch.device(device)
         self.files = [f[0] for f in load_filepaths_and_text(filelist_path)]
         self.segment_size = segment_size
         self.hop_size = hop_size
@@ -95,44 +103,55 @@ class VocoderDataset:
             seg = np.pad(seg, (0, self.segment_size - len(seg)))
         return seg.astype(np.float32), mel[start: start + frames].astype(np.float32)
 
-    def _loss_mels(self, audio_b: np.ndarray) -> np.ndarray:
-        """The loss-target mels of a batch of crops, by the fused log-mel."""
+    def _loss_mels(self, audio_b: np.ndarray):
+        """The loss-target mels of a batch of crops, by the fused log-mel, on
+        the dataset's device (else on the host, as numpy)."""
         pad = (self.mel_loss_cfg.filter_length - self.hop_size) // 2
-        x = F.pad(torch.as_tensor(audio_b, dtype=torch.float32)[:, None], (pad, pad),
-                  mode="reflect")[:, 0]
-        return fused_mel_spectrogram(x, self.mel_loss_cfg).numpy()
+        x = F.pad(torch.as_tensor(audio_b, dtype=torch.float32, device=self.device)[:, None],
+                  (pad, pad), mode="reflect")[:, 0]
+        mel = fused_mel_spectrogram(x, self.mel_loss_cfg)
+        return mel if self.device is not None else mel.numpy()
 
     def _mels(self, audio_b: np.ndarray):
-        """Host mels of a batch of crops: generator input and loss target."""
+        """The mels of a batch of crops, generator input and loss target: on
+        the dataset's device (B1 on a CUDA one, each mel one launch), else
+        on the host as numpy."""
         pad = (self.mel_cfg.filter_length - self.hop_size) // 2
-        x = torch.as_tensor(audio_b, dtype=torch.float32)
+        x = torch.as_tensor(audio_b, dtype=torch.float32, device=self.device)
         padded = F.pad(x[:, None], (pad, pad), mode="reflect")[:, 0]
-        return (mel_spectrogram(padded, self.mel_cfg).numpy(),
-                mel_spectrogram(padded, self.mel_loss_cfg).numpy())
+        mels = (mel_spectrogram(padded, self.mel_cfg),
+                mel_spectrogram(padded, self.mel_loss_cfg))
+        return mels if self.device is not None else tuple(m.numpy() for m in mels)
 
-    def batch_indices(self, batch_size: int, *, seed: int = 0,
-                      max_batches: Optional[int] = None):
-        """The file indices of each batch of a shuffled epoch (the last,
-        short batch dropped); draws no crop."""
+    def batch_indices(self, batch_size: int, *, shuffle: bool = True, seed: int = 0,
+                      drop_last: bool = True, max_batches: Optional[int] = None):
+        """The file indices of each batch of an epoch, in a shuffled order
+        unless ``shuffle=False``, the last short batch dropped unless
+        ``drop_last=False``; draws no crop."""
         order = np.arange(len(self))
         rng = np.random.default_rng(seed)
-        rng.shuffle(order)
-        if len(order) < batch_size:
+        if shuffle:
+            rng.shuffle(order)
+        if shuffle and len(order) < batch_size:
             # corpus smaller than the batch: sample files with replacement
             n = max_batches if max_batches is not None else 1
             idxs = [rng.integers(0, len(order), size=batch_size) for _ in range(n)]
         else:
-            idxs = [order[i: i + batch_size]
-                    for i in range(0, len(order) - batch_size + 1, batch_size)]
+            stop = len(order) - (batch_size - 1 if drop_last else 0)
+            idxs = [order[i: i + batch_size] for i in range(0, stop, batch_size)]
         return idxs if max_batches is None else idxs[:max_batches]
 
-    def batches(self, batch_size: int, *, seed: int = 0, max_batches: Optional[int] = None,
+    def batches(self, batch_size: int, *, shuffle: bool = True, seed: int = 0,
+                drop_last: bool = True, max_batches: Optional[int] = None,
                 audio_only: bool = False, skip: int = 0) -> Iterator[Dict[str, np.ndarray]]:
         """Yield ``{"audio": [B, S, 1]}`` (and ``mel``, ``mel_loss`` unless
-        ``audio_only``; always in fine-tuning mode) as float32 numpy arrays.
-        ``skip`` passes over the first batches of the epoch without drawing
-        their crops (resume)."""
-        for idxs in self.batch_indices(batch_size, seed=seed, max_batches=max_batches)[skip:]:
+        ``audio_only``; always in fine-tuning mode) as float32 numpy arrays,
+        the mels as tensors on the dataset's device when it has one.
+        ``shuffle``/``drop_last`` as in the JAX dataset (validation passes
+        False for both). ``skip`` passes over the first batches of the epoch
+        without drawing their crops (resume)."""
+        for idxs in self.batch_indices(batch_size, shuffle=shuffle, seed=seed,
+                                       drop_last=drop_last, max_batches=max_batches)[skip:]:
             if self.fine_tuning_mel_dir is not None:
                 pairs = [self._fine_tuning_item(j) for j in idxs]
                 audio = np.stack([p[0] for p in pairs])

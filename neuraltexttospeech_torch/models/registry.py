@@ -1,7 +1,7 @@
 """Config persistence and the port's checkpoint format.
 
 Counterpart of the config half of ``neuraltexttospeech_tpu/models/registry.py``
-over the port's two config classes. A port checkpoint is a directory that
+over the port's config classes. A port checkpoint is a directory that
 holds ``model.pt`` (a ``torch.save``d state dict) and ``model_config.json``
 (``{"model": name, "config": {...}, "frontend": {...}}``, the same file the
 JAX training CLIs write).
@@ -16,16 +16,19 @@ from typing import Dict
 
 import torch
 
+from .diffwave import DiffWave, DiffWaveConfig
 from .fastpitch import FastPitch, FastPitchConfig
+from .gradtts import GradTTS, GradTTSConfig
 from .hifigan import Generator, HiFiGANConfig
 
 __all__ = ["CONFIG_REGISTRY", "MODEL_REGISTRY", "config_to_dict", "config_from_dict",
            "find_model_config", "load_model_config", "load_frontend_config",
            "save_model_config", "save_checkpoint", "load_checkpoint"]
 
-MODEL_REGISTRY: Dict[str, type] = {"FastPitch": FastPitch, "HiFiGAN": Generator}
-CONFIG_REGISTRY: Dict[str, type] = {"FastPitch": FastPitchConfig,
-                                    "HiFiGAN": HiFiGANConfig}
+MODEL_REGISTRY: Dict[str, type] = {"FastPitch": FastPitch, "HiFiGAN": Generator,
+                                   "DiffWave": DiffWave, "GradTTS": GradTTS}
+CONFIG_REGISTRY: Dict[str, type] = {"FastPitch": FastPitchConfig, "HiFiGAN": HiFiGANConfig,
+                                    "DiffWave": DiffWaveConfig, "GradTTS": GradTTSConfig}
 WEIGHTS_FILE = "model.pt"
 
 

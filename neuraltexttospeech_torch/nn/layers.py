@@ -11,12 +11,14 @@ stream), and never otherwise, whatever the module's train/eval mode. The
 masks are drawn with ``torch.rand`` from that generator (``F.dropout``
 takes none).
 
-:class:`Conv1d`, :class:`ConvTranspose1d`, :class:`Linear`,
-:class:`Embedding` and :class:`LayerNorm` are PyTorch's modules (the same
+:class:`Conv1d`, :class:`ConvTranspose1d`, :class:`Conv2d`,
+:class:`ConvTranspose2d`, :class:`Linear`, :class:`Embedding`,
+:class:`LayerNorm` and :class:`GroupNorm` are PyTorch's modules (the same
 parameters and state-dict keys) computing in the compute dtype of
-``nn/precision.py`` as flax's ``dtype=`` does: the first four cast their
-input and parameters to it, LayerNorm normalises in f32 and casts its
-output. Without a compute dtype they are PyTorch's modules unchanged.
+``nn/precision.py`` as flax's ``dtype=`` does: the convs, Linear and
+Embedding cast their input and parameters to it, the norms normalise in f32
+and cast their output. Without a compute dtype they are PyTorch's modules
+unchanged.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from torch.nn import functional as F
 
 from .precision import current, promote
 
-__all__ = ["Conv1d", "ConvTranspose1d", "Linear", "Embedding", "LayerNorm", "ConvNorm",
+__all__ = ["Conv1d", "ConvTranspose1d", "Conv2d", "ConvTranspose2d", "Linear", "Embedding",
+           "LayerNorm", "GroupNorm", "ConvNorm",
            "ConvReLUNorm", "LN_EPS", "same_padding", "dropout", "promoted_conv"]
 
 LN_EPS = 1e-3
@@ -89,6 +92,21 @@ class ConvTranspose1d(nn.ConvTranspose1d):
                              self.padding, self.output_padding, self.groups, self.dilation)
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` in the compute dtype (flax ``Conv(dtype=)`` in 2-D)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return promoted_conv(self._conv_forward, x, self.weight, self.bias)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` in the compute dtype (no ``output_size``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return promoted_conv(F.conv_transpose2d, x, self.weight, self.bias, self.stride,
+                             self.padding, self.output_padding, self.groups, self.dilation)
+
+
 class Linear(nn.Linear):
     """``nn.Linear`` in the compute dtype (flax ``Dense(dtype=)``)."""
 
@@ -112,6 +130,16 @@ class LayerNorm(nn.LayerNorm):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+        dtype = current()
+        return y if dtype is None else y.to(dtype)
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax ``GroupNorm(dtype=)``: statistics, normalisation, scale and bias
+    in f32, the output cast to the compute dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
         dtype = current()
         return y if dtype is None else y.to(dtype)
 

@@ -38,7 +38,7 @@ from ..nn.precision import compute_dtype
 from .checkpoint import Checkpointer
 from .state import Optimizer, OptimizerConfig, global_norm
 
-__all__ = ["TrainerConfig", "Trainer", "step_generator"]
+__all__ = ["TrainerConfig", "Trainer", "seeded_generator", "step_generator"]
 
 # loss_fn(model, batch, generator) -> (loss, metrics)
 LossFn = Callable[[torch.nn.Module, Dict[str, Any], Optional[torch.Generator]], Any]
@@ -54,13 +54,18 @@ class TrainerConfig:
     max_checkpoints: int = 5
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """The dropout stream of step ``step``: a generator on ``device`` seeded
-    from ``(seed, step)``."""
-    state = np.random.SeedSequence([seed, step]).generate_state(2, np.uint32)
+def seeded_generator(device, *entropy: int) -> torch.Generator:
+    """A generator on ``device`` seeded from the integers ``entropy``."""
+    state = np.random.SeedSequence(list(entropy)).generate_state(2, np.uint32)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(state[0]) << 32 | int(state[1]))
     return gen
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The dropout stream of step ``step``: a generator on ``device`` seeded
+    from ``(seed, step)``."""
+    return seeded_generator(device, seed, step)
 
 
 class _MetricMean:

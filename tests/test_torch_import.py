@@ -75,7 +75,8 @@ def test_chip_smoke_fails_outside_the_repo(tmp_path):
     assert '"ok": true' not in out.stdout
 
 
-@pytest.mark.parametrize("cli", ["fastpitch_infer", "hifigan_infer"])
+@pytest.mark.parametrize("cli", ["fastpitch_infer", "hifigan_infer", "diffwave_infer",
+                                 "gradtts_infer"])
 def test_cli_without_device_raises_when_no_gpu(cli, tmp_path):
     import importlib
 
@@ -100,3 +101,19 @@ def test_resolve_device_policy():
             resolve_device()
         with pytest.raises(RuntimeError):
             resolve_device("cuda")
+
+
+@pytest.mark.parametrize("cli", ["diffwave_train", "hifigan_train", "fastpitch_train"])
+def test_trainer_cli_without_device_raises_when_no_gpu(cli, tmp_path):
+    import importlib
+
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    mod = importlib.import_module(f"neuraltexttospeech_torch.cli.{cli}")
+    argv = ["-o", str(tmp_path / "out"), "--training-files", str(tmp_path / "list.txt")]
+    if cli == "fastpitch_train":
+        argv += ["-d", str(tmp_path / "feats")]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(argv)

@@ -578,3 +578,30 @@ def test_cuda_mas_kernel_refuses_what_it_does_not_take(cuda_device):
                       (torch.zeros(2, 8, 4, device=cuda_device), one)):
         with pytest.raises(ValueError):
             mas_kernel.maximum_path(la, ilens, lens)
+
+
+@pytest.mark.gpu
+def test_vocoder_dataset_on_the_card_runs_b1_twice_a_batch(cuda_device, tmp_path):
+    """``VocoderDataset(device=cuda)``, the DiffWave trainer's: both mels of
+    each batch through B1 on the card, within B1's log-mel budget of the
+    host's plain path."""
+    from neuraltexttospeech_torch.data.filelist import save_wav
+    from neuraltexttospeech_torch.data.mel_dataset import VocoderDataset
+
+    rng = np.random.default_rng(0)
+    paths = []
+    for i, n in enumerate((2205, 1800, 700, 3000, 1500)):
+        paths.append(str(tmp_path / f"utt{i}.wav"))
+        save_wav(paths[-1], rng.standard_normal(n) * 0.1, 22050)
+    filelist = tmp_path / "list.txt"
+    filelist.write_text("\n".join(f"{p}|text" for p in paths) + "\n")
+    kw = dict(segment_size=1024, hop_size=256, num_mels=80, seed=12)
+    host = list(VocoderDataset(str(filelist), **kw).batches(2, seed=1))
+    mel_kernel.fused_frames_to_mel.launches = 0
+    card = list(VocoderDataset(str(filelist), device=cuda_device, **kw).batches(2, seed=1))
+    assert mel_kernel.fused_frames_to_mel.launches == 2 * len(card) == 4
+    for x, y in zip(host, card):
+        np.testing.assert_array_equal(x["audio"], y["audio"])
+        for k in ("mel", "mel_loss"):
+            assert y[k].is_cuda
+            np.testing.assert_allclose(y[k].cpu().numpy(), x[k], **TOL)
