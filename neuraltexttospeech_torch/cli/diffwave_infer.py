@@ -29,8 +29,8 @@ from ..data.filelist import save_wav
 from ..models.diffwave import DiffWave, reverse_sample
 from ..models.registry import load_checkpoint
 from ..nn.precision import compute_dtype
-from ..train.harness import seeded_generator
 from ..utils.device import resolve_device
+from ..utils.generators import seeded_generator
 
 
 def parse_args(argv=None):

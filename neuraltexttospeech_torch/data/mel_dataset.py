@@ -10,16 +10,16 @@ the crops, the generator-input mel (fmin..fmax) and the loss-target mel
 ``audio_only=True`` only the crops (the GAN step computes both mels).
 
 The JAX dataset computes the mels on its default device, which on the TPU
-runs the Pallas log-mel kernel. Here ``device=`` says where: on a CUDA
-device both mels go through kernel B1 (``ops/mel_kernel.py``) and stay on
-the card as tensors; with no device they are computed on the host, by the
-plain rFFT path, as numpy arrays.
+runs the Pallas log-mel kernel. Here ``device=`` (default: the CPU) says
+where: every array of a batch is a float32 tensor on it, and on a CUDA
+device both mels go through kernel B1 (``ops/mel_kernel.py``); on the CPU
+they take the plain rFFT path.
 
 In fine-tuning mode (``fine_tuning_mel_dir``, ``mel_dataset.py:83-103,
 143-151`` of the JAX package) the generator's input mel is an acoustic
 model's ``<utt>_mel.npy``, cropped at a random frame, and the audio crop is
 aligned to it; the loss mel is the audio crop's, through the fused log-mel
-(``ops/mel_kernel.py``: its plain twin on these host tensors).
+(``ops/mel_kernel.py``: its plain twin on the CPU).
 """
 
 from __future__ import annotations
@@ -57,7 +57,7 @@ class VocoderDataset:
         device=None,
     ):
         self.fine_tuning_mel_dir = fine_tuning_mel_dir
-        self.device = None if device is None else torch.device(device)
+        self.device = torch.device("cpu" if device is None else device)
         self.files = [f[0] for f in load_filepaths_and_text(filelist_path)]
         self.segment_size = segment_size
         self.hop_size = hop_size
@@ -103,25 +103,10 @@ class VocoderDataset:
             seg = np.pad(seg, (0, self.segment_size - len(seg)))
         return seg.astype(np.float32), mel[start: start + frames].astype(np.float32)
 
-    def _loss_mels(self, audio_b: np.ndarray):
-        """The loss-target mels of a batch of crops, by the fused log-mel, on
-        the dataset's device (else on the host, as numpy)."""
-        pad = (self.mel_loss_cfg.filter_length - self.hop_size) // 2
-        x = F.pad(torch.as_tensor(audio_b, dtype=torch.float32, device=self.device)[:, None],
-                  (pad, pad), mode="reflect")[:, 0]
-        mel = fused_mel_spectrogram(x, self.mel_loss_cfg)
-        return mel if self.device is not None else mel.numpy()
-
-    def _mels(self, audio_b: np.ndarray):
-        """The mels of a batch of crops, generator input and loss target: on
-        the dataset's device (B1 on a CUDA one, each mel one launch), else
-        on the host as numpy."""
+    def _padded(self, audio: torch.Tensor) -> torch.Tensor:
+        """A batch of crops [B, S], reflect-padded for centered frames."""
         pad = (self.mel_cfg.filter_length - self.hop_size) // 2
-        x = torch.as_tensor(audio_b, dtype=torch.float32, device=self.device)
-        padded = F.pad(x[:, None], (pad, pad), mode="reflect")[:, 0]
-        mels = (mel_spectrogram(padded, self.mel_cfg),
-                mel_spectrogram(padded, self.mel_loss_cfg))
-        return mels if self.device is not None else tuple(m.numpy() for m in mels)
+        return F.pad(audio[:, None], (pad, pad), mode="reflect")[:, 0]
 
     def batch_indices(self, batch_size: int, *, shuffle: bool = True, seed: int = 0,
                       drop_last: bool = True, max_batches: Optional[int] = None):
@@ -143,23 +128,25 @@ class VocoderDataset:
 
     def batches(self, batch_size: int, *, shuffle: bool = True, seed: int = 0,
                 drop_last: bool = True, max_batches: Optional[int] = None,
-                audio_only: bool = False, skip: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+                audio_only: bool = False, skip: int = 0) -> Iterator[Dict[str, torch.Tensor]]:
         """Yield ``{"audio": [B, S, 1]}`` (and ``mel``, ``mel_loss`` unless
-        ``audio_only``; always in fine-tuning mode) as float32 numpy arrays,
-        the mels as tensors on the dataset's device when it has one.
-        ``shuffle``/``drop_last`` as in the JAX dataset (validation passes
-        False for both). ``skip`` passes over the first batches of the epoch
-        without drawing their crops (resume)."""
+        ``audio_only``; always in fine-tuning mode) as float32 tensors on the
+        dataset's device. ``shuffle``/``drop_last`` as in the JAX dataset
+        (validation passes False for both). ``skip`` passes over the first
+        batches of the epoch without drawing their crops (resume)."""
+        as_tensor = lambda a: torch.as_tensor(a, dtype=torch.float32, device=self.device)  # noqa: E731
         for idxs in self.batch_indices(batch_size, shuffle=shuffle, seed=seed,
                                        drop_last=drop_last, max_batches=max_batches)[skip:]:
             if self.fine_tuning_mel_dir is not None:
                 pairs = [self._fine_tuning_item(j) for j in idxs]
-                audio = np.stack([p[0] for p in pairs])
-                yield {"audio": audio[..., None], "mel": np.stack([p[1] for p in pairs]),
-                       "mel_loss": self._loss_mels(audio)}
+                audio = as_tensor(np.stack([p[0] for p in pairs]))
+                yield {"audio": audio[..., None], "mel": as_tensor(np.stack([p[1] for p in pairs])),
+                       "mel_loss": fused_mel_spectrogram(self._padded(audio), self.mel_loss_cfg)}
                 continue
-            audio = np.stack([self[j] for j in idxs]).astype(np.float32)
+            audio = as_tensor(np.stack([self[j] for j in idxs]))
             batch = {"audio": audio[..., None]}
-            if not audio_only:
-                batch["mel"], batch["mel_loss"] = self._mels(audio)
+            if not audio_only:  # B1 on a CUDA device, one launch a mel
+                padded = self._padded(audio)
+                batch["mel"] = mel_spectrogram(padded, self.mel_cfg)
+                batch["mel_loss"] = mel_spectrogram(padded, self.mel_loss_cfg)
             yield batch

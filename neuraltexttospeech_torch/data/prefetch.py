@@ -22,15 +22,16 @@ _SENTINEL = object()
 
 
 def _to_device(item: dict, device: torch.device, stream):
-    """The numpy arrays of ``item`` as tensors on ``device`` (other values
-    pass through), and the event that marks the end of their copy."""
+    """The numpy arrays and host tensors of ``item`` as tensors on
+    ``device`` (other values, and tensors already on a card, pass through),
+    and the event that marks the end of their copy."""
     out = {}
     for k, v in item.items():
         if isinstance(v, np.ndarray):
             v = torch.from_numpy(np.ascontiguousarray(v))
-            if stream is not None:
-                with torch.cuda.stream(stream):
-                    v = v.pin_memory().to(device, non_blocking=True)
+        if stream is not None and isinstance(v, torch.Tensor) and not v.is_cuda:
+            with torch.cuda.stream(stream):
+                v = v.pin_memory().to(device, non_blocking=True)
         out[k] = v
     if stream is None:
         return out, None
@@ -40,8 +41,8 @@ def _to_device(item: dict, device: torch.device, stream):
 
 
 def prefetch(iterable: Iterable[dict], device, buffer_size: int = 2) -> Iterator[dict]:
-    """Yield the dicts of ``iterable`` with their numpy arrays as tensors on
-    ``device``, produced by a background thread."""
+    """Yield the dicts of ``iterable`` with their numpy arrays and host
+    tensors as tensors on ``device``, produced by a background thread."""
     device = torch.device(device)
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
     q: queue.Queue = queue.Queue(maxsize=buffer_size)

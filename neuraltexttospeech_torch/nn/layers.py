@@ -68,13 +68,15 @@ def promoted_conv(conv, x: torch.Tensor, weight: torch.Tensor, bias, *args, **kw
     channels: off by the output's own size), so on the CPU a bf16 conv runs
     in f32 on the bf16 values and its output is rounded to bf16 once: each
     product is exact in f32 and the sum is f32, which is a bf16 conv with an
-    f32 accumulator, the card's arithmetic. Its gradients are rounded to
+    f32 accumulator, the card's arithmetic. The bias is added after that
+    rounding, in bf16, as PyTorch adds it after a cuDNN convolution and as
+    flax's ``Conv`` adds it (``y += bias``). Its gradients are rounded to
     bf16 by the casts' backward, as a bf16 conv's are."""
     x, weight, bias = promote(x, weight, bias)
     if x.dtype != torch.bfloat16 or x.is_cuda:
         return conv(x, weight, bias, *args, **kwargs)
-    return conv(x.float(), weight.float(), None if bias is None else bias.float(),
-                *args, **kwargs).to(torch.bfloat16)
+    y = conv(x.float(), weight.float(), None, *args, **kwargs).to(torch.bfloat16)
+    return y if bias is None else y + bias.to(y.dtype).reshape((-1,) + (1,) * (y.dim() - 2))
 
 
 class Conv1d(nn.Conv1d):

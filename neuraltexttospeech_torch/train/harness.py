@@ -30,15 +30,15 @@ import dataclasses
 import time
 from typing import Any, Callable, Dict, Iterable, Optional
 
-import numpy as np
 import torch
 
 from ..data.prefetch import prefetch
 from ..nn.precision import compute_dtype
+from ..utils.generators import seeded_generator
 from .checkpoint import Checkpointer
 from .state import Optimizer, OptimizerConfig, global_norm
 
-__all__ = ["TrainerConfig", "Trainer", "seeded_generator", "step_generator"]
+__all__ = ["TrainerConfig", "Trainer", "step_generator"]
 
 # loss_fn(model, batch, generator) -> (loss, metrics)
 LossFn = Callable[[torch.nn.Module, Dict[str, Any], Optional[torch.Generator]], Any]
@@ -52,14 +52,6 @@ class TrainerConfig:
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 1000
     max_checkpoints: int = 5
-
-
-def seeded_generator(device, *entropy: int) -> torch.Generator:
-    """A generator on ``device`` seeded from the integers ``entropy``."""
-    state = np.random.SeedSequence(list(entropy)).generate_state(2, np.uint32)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(state[0]) << 32 | int(state[1]))
-    return gen
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:

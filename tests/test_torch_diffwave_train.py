@@ -189,11 +189,13 @@ def test_dataset_device_keeps_the_mels_there(wav_filelist):
     kw = dict(segment_size=1024, hop_size=256, num_mels=80, seed=12)
     host = list(VocoderDataset(wav_filelist, **kw).batches(2, seed=1))
     dev = list(VocoderDataset(wav_filelist, device="cpu", **kw).batches(2, seed=1))
-    for x, y in zip(host, dev):
-        np.testing.assert_array_equal(x["audio"], y["audio"])  # the same crops
-        for k in ("mel", "mel_loss"):
-            assert isinstance(x[k], np.ndarray) and isinstance(y[k], torch.Tensor)
-            np.testing.assert_array_equal(x[k], y[k].numpy())
+    assert len(host) == len(dev) == 2
+    for x, y in zip(host, dev):  # the same crops and mels, as f32 tensors on the CPU
+        assert sorted(x) == sorted(y) == ["audio", "mel", "mel_loss"]
+        for k in x:
+            assert x[k].device.type == y[k].device.type == "cpu"
+            assert x[k].dtype == y[k].dtype == torch.float32
+            torch.testing.assert_close(x[k], y[k], atol=0, rtol=0)
 
 
 def _train(out, filelist, *extra):
