@@ -17,7 +17,8 @@ Phases, each raising on failure:
    at every distinct MSD shape of a v1 GAN step, forward and dx, in its f32
    (3xTF32) and its bf16 form, each beside grouped ``F.conv1d`` in the same
    type, with an ``HGMMA`` check of both forms' SASS; MAS (monotonic
-   alignment search, bit for bit) at 16 × 768 × 128 and 16 × 870 × 192.
+   alignment search, bit for bit) at 16 × 768 × 128 and 16 × 870 × 192, and
+   at the Grad-TTS step's 16 × 512 × 160 on Grad-TTS's Gaussian log-prior.
 3. Serving path, through the two serving CLIs with full-width FastPitch and
    HiFi-GAN v1 (random weights from a seed), f32 and then ``--amp`` (bf16):
    text → wav for 16 sentences, then wav → wav copy-synthesis, whose
@@ -41,22 +42,35 @@ Phases, each raising on failure:
    ``diffwave_infer --fast`` whole,
    ``--chunked`` and ``--amp`` on the trained checkpoint. Grad-TTS serving:
    the 16 sentences through ``gradtts_infer`` with a full-width Grad-TTS
-   and HiFi-GAN v1, batch 8, f32 and ``--amp``.
+   and HiFi-GAN v1, batch 8, f32 and ``--amp``. Grad-TTS training:
+   ``gradtts_train`` at full width on the FastPitch phase's 16 wavs (batch
+   16, validation on, 2 steps then ``--resume`` for a 3rd, f32 and
+   ``--amp``; MAS once a step and once a validation batch), then
+   ``gradtts_infer`` from the trained checkpoint. FastSpeech 2: synthetic
+   TextGrids for the same wavs through ``fastspeech2_prepare_dataset`` on
+   the card (B1 once a wav; each log-mel held against the host's and B1's
+   twin), ``fastspeech2_train`` at full width (f32 and ``--amp``, 2 steps
+   then ``--resume``) and ``fastspeech2_infer`` with the v1 vocoder.
 7. Reference checks: at a small width the card's text → wav and
    copy-synthesis agree with the same weights on the CPU, and so do one
    GAN step of the small (``TINY``) generator with the full MPD and MSD,
    one FastPitch train step of the golden's small FastPitch (dropout off),
-   one small DiffWave train step and 6-step sample, and a small Grad-TTS
-   synthesis, each in f32 and in bf16 (bf16 by the yardstick of
+   one small DiffWave train step and 6-step sample, a small Grad-TTS
+   synthesis, and one small Grad-TTS and one small FastSpeech 2 train step
+   (the Grad-TTS step's MAS paths equal on both devices), each in f32 and
+   in bf16 (bf16 by the yardstick of
    tests/test_torch_bf16.py with the CPU's f32 run in the place of JAX's).
 8. Timing: text → wav at the ``bench.py`` shape (batch 8 × 128 tokens,
    1024 mel frames), f32 and bf16, in wall seconds per audio second; the v1
    GAN step in ms and samples/s, the FastPitch train step at the
    ``bench.py`` shape (16 × 128 tokens × 768 frames) in ms and mel frames/s,
    the DiffWave train step at its ``bench.py`` shape (16 × 62 frames) and
-   its 6-step sampler at 1 × 256 frames (and the 50-step one once), and
-   Grad-TTS → HiFi-GAN v1 (8 × 128 tokens, 10 steps, 1000 frames), each f32
-   and bf16 with a profiler split, idle share and launch count.
+   its 6-step sampler at 1 × 256 frames (and the 50-step one once),
+   Grad-TTS → HiFi-GAN v1 (8 × 128 tokens, 10 steps, 1000 frames), the
+   Grad-TTS train step (16 × 160 tokens × 512 frames, ``out_size`` 172,
+   with MAS's share) and the FastSpeech 2 train step (16 × 128 tokens × 768
+   frames), each f32 and bf16 with a profiler split, idle share and launch
+   count.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -509,15 +523,27 @@ def mas_bound_ms(batch, t_mel, t_text, out_lens):
 
 def phase_mas(torch, device, card):
     """MAS: the kernel against its plain twin on the card (bit for bit) at
-    the ``bench.py`` FastPitch shape (16 × 768 mel frames × 128 tokens) and
-    at 16 copies of the longest LJSpeech clip (870 × 192), timed beside the
-    twin and the bound. Returns the JSON record (the first shape)."""
+    the ``bench.py`` FastPitch shape (16 × 768 mel frames × 128 tokens), at
+    16 copies of the longest LJSpeech clip (870 × 192), both on log-softmax
+    rows as FastPitch's aligner gives them, and at the Grad-TTS step's shape
+    (``bench.py:519``: 16 × 512 × 160) on Grad-TTS's Gaussian log-prior of
+    random mu and mels; timed beside the twin and the bound. Returns the
+    JSON record (the first shape)."""
+    from neuraltexttospeech_torch.models.gradtts import gaussian_log_prior
     from neuraltexttospeech_torch.ops import mas_kernel
 
     record = None
-    for b, t_mel, t_text in ((16, 768, 128), (16, 870, 192)):
+    for b, t_mel, t_text in ((16, 768, 128), (16, 870, 192), (16, 512, 160)):
         gen = torch.Generator(device=device).manual_seed(t_mel)
-        la = torch.log_softmax(torch.randn(b, t_mel, t_text, device=device, generator=gen), -1)
+        if t_mel == 512:
+            mu = torch.randn(b, t_text, 80, device=device, generator=gen)
+            y = torch.randn(b, t_mel, 80, device=device, generator=gen)
+            la = gaussian_log_prior(mu, y).transpose(1, 2).contiguous()
+            what = "Grad-TTS log-prior"
+        else:
+            la = torch.log_softmax(torch.randn(b, t_mel, t_text, device=device, generator=gen),
+                                   -1)
+            what = "log-softmax rows"
         in_lens = torch.full((b,), t_text, dtype=torch.int32, device=device)
         out_lens = torch.full((b,), t_mel, dtype=torch.int32, device=device)
         got = mas_kernel.maximum_path(la, in_lens, out_lens)
@@ -534,7 +560,7 @@ def phase_mas(torch, device, card):
         own = sum(ms for ms, name in device_breakdown.last if "mas_kernel" in name) / 10
         dev["plain"] = device_ms(torch, fns["plain"], reps=2)
         bound_ms, bound_by = mas_bound_ms(b, t_mel, t_text, [t_mel] * b)
-        log(f"MAS {b}x{t_mel}x{t_text}: kernel == twin bit for bit; device time kernel "
+        log(f"MAS {b}x{t_mel}x{t_text} ({what}): kernel == twin bit for bit; device time kernel "
             f"{dev['kernel'] * 1e3:.2f} us (the MAS kernel itself {own * 1e3:.2f} us, the rest "
             f"the wrapper's zero fill of the path), plain loop {dev['plain'] * 1e3:.1f} us; CUDA "
             f"events over back-to-back calls kernel {ev['kernel'] * 1e3:.2f} us, plain "
@@ -933,8 +959,6 @@ def phase_fastpitch_reference(torch, device):
     from neuraltexttospeech_torch.cli.fastpitch_train import make_loss_fn
     from neuraltexttospeech_torch.models.fastpitch import FastPitch, FastPitchConfig
     from neuraltexttospeech_torch.models.fastpitch_loss import FastPitchLossConfig
-    from neuraltexttospeech_torch.train.harness import Trainer, TrainerConfig
-    from neuraltexttospeech_torch.train.state import OptimizerConfig
 
     no_dropout = {f.name: 0.0 for f in dataclasses.fields(FastPitchConfig)
                   if f.name.startswith("p_")}
@@ -942,38 +966,12 @@ def phase_fastpitch_reference(torch, device):
     torch.manual_seed(3)
     weights = FastPitch(cfg).state_dict()
     batch = fastpitch_batch(4, 3, 16, 48, 40, [16, 10, 6], [48, 37, 20])
-    cpu = torch.device("cpu")
-    out, steps = {}, {}
-    for amp in (False, True):
-        for dev in (device, cpu):
-            model = FastPitch(cfg)
-            model.load_state_dict(weights)
-            trainer = Trainer(make_loss_fn(FastPitchLossConfig(), 1), model,
-                              TrainerConfig(optimizer=OptimizerConfig(learning_rate=1e-3,
-                                                                      eps=1e-6)), dev,
-                              dtype=torch.bfloat16 if amp else None)
-            metrics = trainer.train_step({k: torch.as_tensor(v, device=dev)
-                                          for k, v in batch.items()})
-            # the first Adam moment after one step is (1 - b1) g
-            b1 = trainer.optimizer.config.beta1
-            names = [n for n, p in model.named_parameters() if p.requires_grad]
-            steps[(amp, dev.type)] = ({k: float(v) for k, v in metrics.items()},
-                                      {k: v.detach().cpu() for k, v in model.state_dict().items()},
-                                      {n: (m / (1.0 - b1)).cpu()
-                                       for n, m in zip(names, trainer.optimizer.mu)})
-    out = {dev: steps[(False, dev)] for dev in ("cuda", "cpu")}
+    steps = train_steps_card_and_cpu(torch, lambda: FastPitch(cfg), weights,
+                                     make_loss_fn(FastPitchLossConfig(), 1),
+                                     dict(learning_rate=1e-3, eps=1e-6), batch, device)
     check_bf16_step("small FastPitch train step", *({k: v[i] for k, v in steps.items()}
                                                     for i in range(3)), 1e-3)
-    worst_m = max(abs(out["cuda"][0][k] - v) / max(abs(v), 1e-12) for k, v in out["cpu"][0].items())
-    for k, v in out["cpu"][0].items():
-        np.testing.assert_allclose(out["cuda"][0][k], v, rtol=2e-4, err_msg=k)
-    worst_p = 0.0
-    for k, v in out["cpu"][1].items():
-        np.testing.assert_allclose(out["cuda"][1][k].numpy(), v.numpy(), rtol=3e-3, atol=3e-5,
-                                   err_msg=k)
-        worst_p = max(worst_p, (out["cuda"][1][k] - v).abs().max().item())
-    log(f"reference: small FastPitch train step card vs CPU: max relative metric diff "
-        f"{worst_m:.2e}, max|param diff| {worst_p:.2e}")
+    check_f32_step("small FastPitch train step", steps)
 
 
 def phase_gan_reference(torch, device):
@@ -1606,31 +1604,12 @@ def sampled_close(what, card, cpu):
 def diffwave_steps(torch, cfg, weights, batch, device, lr):
     """One DiffWave ``Trainer`` step (Adam at ``lr``) from ``weights`` on
     ``batch`` (numpy, with its ``t`` and ``noise``), f32 and bf16, on
-    ``device`` and on the CPU: {(amp, device type): (metrics, parameters,
-    gradients)}, the gradients from Adam's first moment (``mu / (1 - b1)``
-    after one step)."""
+    ``device`` and on the CPU: :func:`train_steps_card_and_cpu`'s record."""
     from neuraltexttospeech_torch.cli.diffwave_train import make_loss_fn
     from neuraltexttospeech_torch.models.diffwave import DiffWave
-    from neuraltexttospeech_torch.train.harness import Trainer, TrainerConfig
-    from neuraltexttospeech_torch.train.state import OptimizerConfig
 
-    steps = {}
-    for amp in (False, True):
-        for dev in (device, torch.device("cpu")):
-            m = DiffWave(cfg)
-            m.load_state_dict(weights)
-            trainer = Trainer(make_loss_fn(False), m, TrainerConfig(
-                optimizer=OptimizerConfig(**dict(DW_ADAM, learning_rate=lr))), dev,
-                dtype=torch.bfloat16 if amp else None)
-            metrics = trainer.train_step({k: torch.as_tensor(v, device=dev)
-                                          for k, v in batch.items()})
-            names = [n for n, p in m.named_parameters() if p.requires_grad]
-            steps[(amp, dev.type)] = (
-                {k: float(v) for k, v in metrics.items()},
-                {k: v.detach().cpu().clone() for k, v in m.state_dict().items()},
-                {n: (mu / (1.0 - 0.9)).cpu() for n, mu in zip(names, trainer.optimizer.mu)})
-            del trainer, m
-    return steps
+    return train_steps_card_and_cpu(torch, lambda: DiffWave(cfg), weights, make_loss_fn(False),
+                                    dict(DW_ADAM, learning_rate=lr), batch, device)
 
 
 def diffwave_step_inputs(torch, cfg, t, seed, rng):
@@ -1675,18 +1654,9 @@ def phase_diffwave_reference(torch, device):
                     m.eval(), torch.as_tensor(batch["mel"], device=dev), fast_sampling=True,
                     audio0=torch.as_tensor(audio0, device=dev),
                     noise=[torch.as_tensor(z, device=dev) for z in noise]).cpu().numpy()
-    out = {dev: steps[(False, dev)] for dev in ("cuda", "cpu")}
-    for k, v in out["cpu"][0].items():
-        np.testing.assert_allclose(out["cuda"][0][k], v, rtol=2e-4, err_msg=k)
-    worst_p = 0.0
-    for k, v in out["cpu"][1].items():
-        np.testing.assert_allclose(out["cuda"][1][k].numpy(), v.numpy(), rtol=3e-3, atol=3e-5,
-                                   err_msg=k)
-        worst_p = max(worst_p, (out["cuda"][1][k] - v).abs().max().item())
-    worst_m = max(abs(out["cuda"][0][k] - v) / max(abs(v), 1e-12) for k, v in out["cpu"][0].items())
+    check_f32_step("small DiffWave train step", steps)
     d = sampled_close("DiffWave 6-step sample", samples[(False, "cuda")], samples[(False, "cpu")])
-    log(f"reference: small DiffWave train step card vs CPU: max relative metric diff "
-        f"{worst_m:.2e}, max|param diff| {worst_p:.2e}; 6-step sample max|diff| {d:.2e}")
+    log(f"reference: small DiffWave 6-step sample card vs CPU: max|diff| {d:.2e}")
     check_bf16_step("small DiffWave train step", *({k: v[i] for k, v in steps.items()}
                                                    for i in range(3)), 1e-3)
     e = bf16_yardstick("DiffWave 6-step sample", samples[(True, "cuda")],
@@ -1753,6 +1723,469 @@ def phase_gradtts_reference(torch, device):
         f"{cl.tolist()}")
 
 
+# gradtts/train.py's Adam; fastspeech2/train.py's noam Adam
+GT_ADAM = dict(learning_rate=1e-4, grad_clip_norm=1.0, beta1=0.9, beta2=0.999, eps=1e-8)
+FS2_NOAM = dict(learning_rate=1e-3, schedule="noam", warmup_steps=4000, grad_clip_norm=1.0,
+                beta1=0.9, beta2=0.98, eps=1e-9)
+# ARPAbet phones the synthetic TextGrids cycle through
+PHONES = ("HH", "AH0", "L", "OW1", "W", "ER1", "D", "DH", "IH0", "S", "T", "EY1", "N", "K",
+          "AE1", "M", "P", "IY1", "R", "Z")
+
+
+def gradtts_batch(rng, batch, t_text, t_mel, n_symbols, text_lens, mel_lens, out_size=None):
+    """A random Grad-TTS batch (numpy): interspersed random tokens (the blank
+    ``n_symbols − 1`` at the even places) and N(0, 1) mels, zero past their
+    lengths; with ``out_size`` also the loss's draws (the cut's ``u``, the
+    time ``t`` and the noise ``z``), so that two devices see the same ones."""
+    text_lens, mel_lens = np.asarray(text_lens, np.int32), np.asarray(mel_lens, np.int32)
+    text = np.full((batch, t_text), n_symbols - 1, np.int32)
+    text[:, 1::2] = rng.integers(1, n_symbols - 1, (batch, t_text // 2))
+    text[np.arange(t_text)[None] >= text_lens[:, None]] = 0
+    valid = np.arange(t_mel)[None, :, None] < mel_lens[:, None, None]
+    out = {"text": text, "input_lens": text_lens, "mel_lens": mel_lens,
+           "mel": (rng.standard_normal((batch, t_mel, 80)) * valid).astype(np.float32)}
+    if out_size is not None:
+        out["u"] = rng.uniform(size=batch).astype(np.float32)
+        out["t"] = rng.uniform(1e-5, 1.0 - 1e-5, batch).astype(np.float32)
+        out["z"] = rng.standard_normal((batch, 80, min(out_size, t_mel))).astype(np.float32)
+    return out
+
+
+def fastspeech2_batch(rng, batch, t_text, t_mel, n_symbols, text_lens, frames_per_token):
+    """A random FastSpeech 2 batch (numpy): tokens, ``frames_per_token``
+    frames each, N(0, 1) mels, normalized pitch and energy."""
+    text_lens = np.asarray(text_lens, np.int32)
+    valid = np.arange(t_text)[None] < text_lens[:, None]
+    text = np.where(valid, rng.integers(1, n_symbols, (batch, t_text)), 0).astype(np.int32)
+    dur = (valid * frames_per_token).astype(np.float32)
+    mel_lens = dur.sum(1).astype(np.int32)
+    frame_ok = np.arange(t_mel)[None, :, None] < mel_lens[:, None, None]
+    return {"text": text, "input_lens": text_lens, "mel_lens": mel_lens, "dur": dur,
+            "mel": (rng.standard_normal((batch, t_mel, 80)) * frame_ok).astype(np.float32),
+            "pitch": (rng.standard_normal((batch, t_text)) * valid).astype(np.float32),
+            "energy": (rng.standard_normal((batch, t_text)) * valid).astype(np.float32)}
+
+
+def phase_gradtts_train_cli(torch, device, card):
+    """Grad-TTS training through its CLI at full width: ``gradtts_train`` on
+    the 16 synthetic wavs of the FastPitch phase (their mels are that phase's
+    B1 log-mels, read from its feature directory), batch 16, validation on
+    the same list, 2 steps then ``--resume`` for a 3rd, f32 and ``--amp``;
+    MAS once a step and once a validation batch. Then ``gradtts_infer`` serves
+    the 16 sentences from the trained f32 checkpoint with the HiFi-GAN v1
+    checkpoint of the serving phase. Returns MAS's launches per step."""
+    from neuraltexttospeech_torch.cli import gradtts_infer, gradtts_train
+    from neuraltexttospeech_torch.ops import gouter_kernel, mas_kernel, mel_kernel
+
+    filelist, feats = WORK / "fp_train.txt", WORK / "fp_feats"
+    out = {}
+    for tag, flags in (("f32", []), ("bf16", ["--amp"])):
+        run_dir = WORK / f"gt_train_{tag}"
+        args = ["-o", str(run_dir), "-d", str(feats), "--training-files", str(filelist),
+                "--validation-files", str(filelist), "-bs", "16", "--steps-per-epoch", "1"] + flags
+        for counted in (mel_kernel.fused_frames_to_mel, gouter_kernel.gouter_tap_dots_kernel,
+                        mas_kernel.maximum_path):
+            counted.launches = 0
+        t0 = time.perf_counter()
+        first = gradtts_train.main(args + ["--epochs", "2"])
+        resumed = gradtts_train.main(args + ["--epochs", "3", "--resume"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        mas = mas_kernel.maximum_path.launches
+        b1 = mel_kernel.fused_frames_to_mel.launches
+        b2 = gouter_kernel.gouter_tap_dots_kernel.launches
+        trainer = resumed["trainer"]
+        dtype = torch.bfloat16 if flags else None
+        if (first["steps"], resumed["steps"], trainer.step, trainer.dtype) != (2, 1, 3, dtype):
+            raise RuntimeError(f"Grad-TTS trainer ({tag}) ran {first['steps']} + "
+                               f"{resumed['steps']} steps, ended at step {trainer.step}")
+        for run in (first, resumed):
+            values = [*run["metrics"].values(), *run["val"].values()]
+            if not run["metrics"] or not run["val"] or not all(np.isfinite(v) for v in values):
+                raise RuntimeError(f"non-finite or missing Grad-TTS losses ({tag}): {run}")
+        steps, val_batches = 3, 3  # one validation batch (16 utterances) after each epoch
+        log(f"Grad-TTS training path ({tag}): full width, batch 16, {steps} steps (2, then "
+            f"--resume 1) and {val_batches} validation passes in {wall:.1f} s with set-up and "
+            f"checkpoints; MAS launches {mas} (1 a step and 1 a validation batch), B1 {b1}, "
+            f"B2 {b2}; last losses "
+            + " ".join(f"{k}={v:.4f}" for k, v in sorted(resumed["metrics"].items()))
+            + f" [{card}]")
+        if mas != steps + val_batches or b1 or b2:
+            raise RuntimeError(f"the Grad-TTS step ({tag}) launched MAS {mas}, B1 {b1}, B2 {b2} "
+                               f"times in {steps} steps and {val_batches} validation batches; "
+                               f"expected {steps + val_batches}, 0, 0")
+        if any(p.dtype != torch.float32 for p in trainer.model.parameters()):
+            raise RuntimeError(f"the Grad-TTS {tag} trainer holds parameters that are not f32")
+        out[tag] = {"mas": mas, "mas_per_step": (mas - val_batches) // steps}
+        del trainer, first, resumed
+
+    from scipy.io import wavfile
+
+    served = WORK / "gt_trained_serve"
+    t0 = time.perf_counter()
+    gradtts_infer.main(["--checkpoint", str(WORK / "gt_train_f32" / "checkpoints" / "3"),
+                        "--hifigan-checkpoint", str(WORK / "gt_serve" / "hifigan"), "-i",
+                        str(WORK / "gt_sentences.txt"), "-o", str(served), "-bs", "8"])
+    torch.cuda.synchronize()
+    frames = 0
+    for j in range(len(SENTENCES)):
+        mel = np.load(served / f"utt_{j:04d}_mel.npy")
+        sr, audio = wavfile.read(served / f"utt_{j:04d}.wav")
+        if (mel.ndim != 2 or mel.shape[1] != 80 or not mel.shape[0] or not np.isfinite(mel).all()
+                or sr != SR or audio.shape != (mel.shape[0] * HOP,)):
+            raise RuntimeError(f"gradtts_infer from the trained checkpoint, utterance {j}: mel "
+                               f"{mel.shape}, audio {audio.shape}")
+        frames += mel.shape[0]
+    log(f"Grad-TTS serving from the trained checkpoint: {len(SENTENCES)} sentences, {frames} "
+        f"frames in {time.perf_counter() - t0:.2f} s (first call, checkpoint load included); "
+        f"mels and wavs of ylen · hop samples, finite [{card}]")
+    return out
+
+
+def textgrid(intervals, xmax):
+    """A one-tier ("phones") long-form TextGrid, as MFA writes them."""
+    items = "\n".join(f"        intervals [{i + 1}]:\n            xmin = {s}\n"
+                      f"            xmax = {e}\n            text = \"{p}\""
+                      for i, (s, e, p) in enumerate(intervals))
+    return ("File type = \"ooTextFile\"\nObject class = \"TextGrid\"\n\nxmin = 0\n"
+            f"xmax = {xmax}\ntiers? <exists>\nsize = 1\nitem []:\n    item [1]:\n"
+            "        class = \"IntervalTier\"\n        name = \"phones\"\n        xmin = 0\n"
+            f"        xmax = {xmax}\n        intervals: size = {len(intervals)}\n{items}\n")
+
+
+def phase_fastspeech2_cli(torch, device, card):
+    """FastSpeech 2 through its CLIs at full width: synthetic TextGrids (0.1 s
+    of leading "sil", about ten ARPAbet phones a second, 0.1 s of trailing
+    "sp") for the 16 wavs of the FastPitch phase → ``fastspeech2_prepare_dataset``
+    on the card (B1 once a wav; each utterance's log-mel held against the
+    host's plain path and against B1's twin) → ``fastspeech2_train`` on the 12
+    training utterances (batch 12, validation on the 4 held out), 2 steps then
+    ``--resume`` for a 3rd, f32 and ``--amp`` → ``fastspeech2_infer`` of the 16
+    sentences with the serving phase's HiFi-GAN v1, f32 and ``--amp``: finite
+    wavs of ``dec_lens · 256`` samples. Returns B1's launches in prep."""
+    from scipy.io import wavfile
+
+    from neuraltexttospeech_torch.audio.stft import STFTConfig, windowed_frames
+    from neuraltexttospeech_torch.cli import (fastspeech2_infer, fastspeech2_prepare_dataset,
+                                              fastspeech2_train)
+    from neuraltexttospeech_torch.data.filelist import load_wav
+    from neuraltexttospeech_torch.data.fs2_preprocess import FS2Preprocessor
+    from neuraltexttospeech_torch.data.textgrid import parse_textgrid
+    from neuraltexttospeech_torch.models.registry import load_checkpoint, save_checkpoint
+    from neuraltexttospeech_torch.ops import gouter_kernel, mas_kernel, mel_kernel
+
+    raw, tg, pre = WORK / "fs2_raw", WORK / "fs2_tg", WORK / "fs2_pre"
+    raw.mkdir()
+    tg.mkdir()
+    meta, names = [], []
+    for i, line in enumerate((WORK / "fp_train.txt").read_text().splitlines()):
+        path, text = line.split("|", 1)
+        seconds = load_wav(path, SR)[0].size / SR
+        name = f"LJ{i:03d}"
+        shutil.copy(path, raw / f"{name}.wav")
+        edges = np.round(np.linspace(0.1, seconds - 0.1, max(8, int(seconds * 10)) + 1), 4)
+        ivs = ([(0.0, 0.1, "sil")]
+               + [(a, b, PHONES[(i + j) % len(PHONES)])
+                  for j, (a, b) in enumerate(zip(edges[:-1], edges[1:]))]
+               + [(float(edges[-1]), round(seconds, 4), "sp")])
+        (tg / f"{name}.TextGrid").write_text(textgrid(ivs, round(seconds, 4)))
+        meta.append(f"{name}|{text}|{text}")
+        names.append(name)
+    (raw / "metadata.csv").write_text("\n".join(meta) + "\n")
+
+    mel_kernel.fused_frames_to_mel.launches = 0
+    t0 = time.perf_counter()
+    stats = fastspeech2_prepare_dataset.main(["--raw-path", str(raw), "--textgrid-path",
+                                              str(tg), "--out-dir", str(pre), "--val-size", "4"])
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    b1_prep = mel_kernel.fused_frames_to_mel.launches
+    if b1_prep != len(names):
+        raise RuntimeError(f"FastSpeech 2 prep launched B1 {b1_prep} times for {len(names)} wavs")
+    # B1 at the prep's call sites: each utterance's saved (card) log-mel
+    # against the host's plain path on the same samples, and B1 against its
+    # twin on the card on that utterance's frames
+    host = FS2Preprocessor(str(raw), str(tg), str(WORK / "fs2_host"), device="cpu")
+    cfg, d_host, d_twin, n_frames = STFTConfig(), 0.0, 0.0, 0
+    for name in names:
+        tiers = parse_textgrid(str(tg / f"{name}.TextGrid"))
+        _, _, start, end = host.get_alignment(tiers["phones"])
+        a = load_wav(str(raw / f"{name}.wav"), SR)[0][int(SR * start):int(SR * end)]
+        saved = np.load(pre / f"{name}_mel.npy")
+        want = host.stft.mel_spectrogram(a).numpy()[:saved.shape[0]]
+        np.testing.assert_allclose(saved, want, atol=1e-3, rtol=1e-4, err_msg=name)
+        d_host = max(d_host, float(np.abs(saved - want).max()))
+        frames = windowed_frames(torch.as_tensor(a, device=device), 1024, HOP, 1024).contiguous()
+        got, twin = (mel_kernel.fused_frames_to_mel(frames, cfg),
+                     mel_kernel.frames_to_mel_reference(frames, cfg))
+        torch.testing.assert_close(got, twin, atol=1e-3, rtol=1e-4)
+        d_twin = max(d_twin, (got - twin).abs().max().item())
+        n_frames += frames.shape[0]
+    log(f"FastSpeech 2 prep path: {len(names)} wavs ({n_frames} frames) in {prep_s:.2f} s (pitch "
+        f"on the host); B1 launches {b1_prep}; saved log-mels vs the host's plain path max|diff| "
+        f"{d_host:.3e}, B1 vs its twin on the card {d_twin:.3e} (atol 1e-3, rtol 1e-4); "
+        f"pitch range [{stats['pitch_min']:.2f}, {stats['pitch_max']:.2f}] [{card}]")
+
+    for tag, flags in (("f32", []), ("bf16", ["--amp"])):
+        run_dir = WORK / f"fs2_train_{tag}"
+        args = ["-o", str(run_dir), "-d", str(pre), "--validation-split", "val", "-bs", "12",
+                "--steps-per-epoch", "1"] + flags
+        for counted in (mel_kernel.fused_frames_to_mel, gouter_kernel.gouter_tap_dots_kernel,
+                        mas_kernel.maximum_path):
+            counted.launches = 0
+        t0 = time.perf_counter()
+        first = fastspeech2_train.main(args + ["--epochs", "2"])
+        resumed = fastspeech2_train.main(args + ["--epochs", "3", "--resume"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = (mel_kernel.fused_frames_to_mel.launches,
+                  gouter_kernel.gouter_tap_dots_kernel.launches, mas_kernel.maximum_path.launches)
+        trainer = resumed["trainer"]
+        dtype = torch.bfloat16 if flags else None
+        if (first["steps"], resumed["steps"], trainer.step, trainer.dtype) != (2, 1, 3, dtype):
+            raise RuntimeError(f"FastSpeech 2 trainer ({tag}) ran {first['steps']} + "
+                               f"{resumed['steps']} steps, ended at step {trainer.step}")
+        for run in (first, resumed):
+            values = [*run["metrics"].values(), *run["val"].values()]
+            if not run["metrics"] or not run["val"] or not all(np.isfinite(v) for v in values):
+                raise RuntimeError(f"non-finite or missing FastSpeech 2 losses ({tag}): {run}")
+        if any(counts) or any(p.dtype != torch.float32 for p in trainer.model.parameters()):
+            raise RuntimeError(f"the FastSpeech 2 step ({tag}) launched B1, B2, MAS {counts} "
+                               f"times (expected none) or holds parameters that are not f32")
+        log(f"FastSpeech 2 training path ({tag}): full width, batch 12, 3 steps (2, then --resume "
+            f"1) and 3 validation passes in {wall:.1f} s with set-up and checkpoints; last losses "
+            + " ".join(f"{k}={v:.4f}" for k, v in sorted(resumed["metrics"].items()))
+            + f" [{card}]")
+        del trainer, first, resumed
+
+    # serving: the trained f32 checkpoint, its duration head's bias set to
+    # log 7 (3 steps of a noam warm-up leave it at ~0: zero-length outputs)
+    model, config = load_checkpoint(WORK / "fs2_train_f32" / "checkpoints" / "3", "FastSpeech2",
+                                    device)
+    with torch.no_grad():
+        model.duration_predictor.fc.bias.fill_(float(np.log(7.0)))
+    fe = json.loads((WORK / "fs2_train_f32" / "checkpoints" / "3" / "model_config.json")
+                    .read_text())["frontend"]
+    ckpt = save_checkpoint(WORK / "fs2_serve", "FastSpeech2", config, model.state_dict(), fe)
+    for tag, flags in (("f32", []), ("bf16", ["--amp"])):
+        out = WORK / f"fs2_wavs_{tag}"
+        t0 = time.perf_counter()
+        fastspeech2_infer.main(["--checkpoint", str(ckpt), "--hifigan-checkpoint",
+                                str(WORK / "gt_serve" / "hifigan"), "-i",
+                                str(WORK / "gt_sentences.txt"), "-o", str(out), "-bs", "8"]
+                               + flags)
+        torch.cuda.synchronize()
+        frames = 0
+        for j in range(len(SENTENCES)):
+            mel = np.load(out / f"utt_{j:04d}_mel.npy")
+            sr, audio = wavfile.read(out / f"utt_{j:04d}.wav")
+            if (mel.ndim != 2 or mel.shape[1] != 80 or not mel.shape[0]
+                    or not np.isfinite(mel).all() or sr != SR
+                    or audio.shape != (mel.shape[0] * HOP,) or not np.isfinite(audio).all()):
+                raise RuntimeError(f"fastspeech2_infer ({tag}) utterance {j}: mel {mel.shape}, "
+                                   f"audio {audio.shape}")
+            frames += mel.shape[0]
+        log(f"FastSpeech 2 serving path ({tag}): {len(SENTENCES)} sentences, batch 8, {frames} "
+            f"frames in {time.perf_counter() - t0:.2f} s (first call, checkpoint load "
+            f"included); mels and wavs of dec_lens · hop samples, finite [{card}]")
+    return b1_prep
+
+
+def train_steps_card_and_cpu(torch, make_model, weights, loss_fn, opt, batch, device):
+    """One ``Trainer`` step from ``weights`` on ``batch`` (numpy), f32 and
+    bf16, on ``device`` and on the CPU: {(amp, device type): (metrics,
+    parameters, gradients)}, the gradients from Adam's first moment."""
+    from neuraltexttospeech_torch.train.harness import Trainer, TrainerConfig
+    from neuraltexttospeech_torch.train.state import OptimizerConfig
+
+    steps = {}
+    for amp in (False, True):
+        for dev in (device, torch.device("cpu")):
+            m = make_model()
+            m.load_state_dict(weights)
+            trainer = Trainer(loss_fn, m, TrainerConfig(optimizer=OptimizerConfig(**opt)), dev,
+                              dtype=torch.bfloat16 if amp else None)
+            metrics = trainer.train_step({k: torch.as_tensor(v, device=dev)
+                                          for k, v in batch.items()})
+            # the first Adam moment after one step is (1 - b1) g
+            b1 = trainer.optimizer.config.beta1
+            names = [n for n, p in m.named_parameters() if p.requires_grad]
+            steps[(amp, dev.type)] = (
+                {k: float(v) for k, v in metrics.items()},
+                {k: v.detach().cpu().clone() for k, v in m.state_dict().items()},
+                {n: (mu / (1.0 - b1)).cpu() for n, mu in zip(names, trainer.optimizer.mu)})
+            del trainer, m
+    return steps
+
+
+def check_f32_step(label, steps):
+    """Card vs CPU f32 step at the trainer tolerances (metrics rtol 2e-4,
+    parameters rtol 3e-3 / atol 3e-5); logs the largest differences."""
+    card, cpu = steps[(False, "cuda")], steps[(False, "cpu")]
+    for k, v in cpu[0].items():
+        np.testing.assert_allclose(card[0][k], v, rtol=2e-4, err_msg=f"{label} {k}")
+    worst_p = 0.0
+    for k, v in cpu[1].items():
+        np.testing.assert_allclose(card[1][k].numpy(), v.numpy(), rtol=3e-3, atol=3e-5,
+                                   err_msg=f"{label} {k}")
+        worst_p = max(worst_p, (card[1][k] - v).abs().max().item())
+    worst_m = max(abs(card[0][k] - v) / max(abs(v), 1e-12) for k, v in cpu[0].items())
+    log(f"reference: {label} card vs CPU: max relative metric diff {worst_m:.2e}, max|param "
+        f"diff| {worst_p:.2e}")
+
+
+def phase_gradtts_train_reference(torch, device):
+    """One Grad-TTS train step of a small Grad-TTS (the goldens' widths, the
+    UNet at 16 so that each GroupNorm group holds two channels, the
+    english_basic symbol set, dropout off), batch 3 × 24 interspersed tokens
+    × 64 frames, ``out_size`` 32, the loss's draws in the batch: card vs CPU
+    from the same weights (``random_gradtts``'s scaled init, ReZero gains at
+    0.02) at the trainer tolerances, Adam at lr 1e-3 with eps 1e-6 (as the
+    FastPitch reference: the attention's key bias has a gradient that is
+    zero but for rounding); the MAS paths of both devices' log-priors equal;
+    then bf16 by :func:`check_bf16_step`."""
+    from neuraltexttospeech_torch.cli.gradtts_train import make_loss_fn
+    from neuraltexttospeech_torch.models.gradtts import GradTTS, GradTTSConfig, gaussian_log_prior
+    from neuraltexttospeech_torch.ops.mas import maximum_path
+
+    cfg = GradTTSConfig(n_enc_channels=32, filter_channels=64, filter_channels_dp=32,
+                        n_enc_layers=2, dec_dim=16, enc_dropout=0.0)
+    cpu = torch.device("cpu")
+    weights = {k: v.clone() for k, v in
+               random_gradtts(cfg, 21, cpu, 2.0, gain=0.02).state_dict().items()}
+
+    def make_model():
+        m = GradTTS(cfg)
+        m.encoder.prenet.p_dropout = m.encoder.proj_w.p_dropout = 0.0
+        return m
+
+    batch = gradtts_batch(np.random.default_rng(22), 3, 24, 64, cfg.n_symbols, [24, 17, 11],
+                          [64, 51, 30], out_size=32)
+    paths = {}
+    for dev in (device, cpu):
+        m = make_model().to(dev)
+        m.load_state_dict(weights)
+        t = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        with torch.no_grad():
+            mu_x = m.encoder(t["text"], t["input_lens"])[0]
+            paths[dev.type] = maximum_path(gaussian_log_prior(mu_x, t["mel"]).transpose(1, 2),
+                                           t["input_lens"], t["mel_lens"]).cpu()
+    if not torch.equal(paths["cuda"], paths["cpu"]):
+        raise RuntimeError(f"Grad-TTS MAS paths differ card vs CPU at "
+                           f"{int((paths['cuda'] != paths['cpu']).sum())} cells (a near-tie)")
+    opt = dict(learning_rate=1e-3, beta1=0.9, beta2=0.999, eps=1e-6, grad_clip_norm=1.0)
+    steps = train_steps_card_and_cpu(torch, make_model, weights, make_loss_fn(32), opt, batch,
+                                     device)
+    log("reference: small Grad-TTS step: the MAS paths of the card's and the CPU's log-priors "
+        "are equal")
+    check_f32_step("small Grad-TTS train step", steps)
+    check_bf16_step("small Grad-TTS train step", *({k: v[i] for k, v in steps.items()}
+                                                   for i in range(3)), opt["learning_rate"])
+
+
+def phase_fastspeech2_reference(torch, device):
+    """One FastSpeech 2 train step of tests/test_fastspeech2.py's TINY (148
+    symbols, dropout off), batch 3 × 16 tokens × 48 frames, the noam schedule
+    with warm-up 4 and Adam eps 1e-6 (tests/test_torch_fastspeech2.py's): card
+    vs CPU from the same weights at the trainer tolerances, then bf16 by
+    :func:`check_bf16_step`."""
+    from neuraltexttospeech_torch.cli.fastspeech2_train import loss_fn
+    from neuraltexttospeech_torch.models.fastspeech2 import FastSpeech2, FastSpeech2Config
+
+    cfg = FastSpeech2Config(encoder_layer=1, decoder_layer=1, encoder_hidden=32,
+                            decoder_hidden=32, conv_filter_size=64, variance_filter_size=16,
+                            n_bins=16, postnet_dim=24, postnet_layers=2, encoder_dropout=0.0,
+                            decoder_dropout=0.0, variance_dropout=0.0)
+
+    def make_model():
+        m = FastSpeech2(cfg)
+        m.postnet.p_dropout = 0.0
+        return m
+
+    torch.manual_seed(23)
+    weights = {k: v.clone() for k, v in make_model().state_dict().items()}
+    batch = fastspeech2_batch(np.random.default_rng(24), 3, 16, 48, 148, [16, 11, 7], 3)
+    opt = dict(learning_rate=1e-3, schedule="noam", warmup_steps=4, grad_clip_norm=1.0,
+               beta1=0.9, beta2=0.98, eps=1e-6)
+    steps = train_steps_card_and_cpu(torch, make_model, weights, loss_fn, opt, batch, device)
+    check_f32_step("small FastSpeech 2 train step", steps)
+    check_bf16_step("small FastSpeech 2 train step", *({k: v[i] for k, v in steps.items()}
+                                                       for i in range(3)), 2.5e-4)
+
+
+def step_timing(torch, trainer, batch, label, card, frames, kernel=None):
+    """A train step's wall (median of 5 synchronised steps after 2 warm
+    ones), steps/s and mel frames/s, peak memory, then one traced step:
+    busy time, idle share, device events, host launches, the top kernels and
+    ``kernel``'s time and share."""
+    for _ in range(2):
+        trainer.train_step(batch)
+    wall, walls, hosts, metrics = timed_calls(torch, lambda: trainer.train_step(batch), 5)
+    if not all(np.isfinite(float(v)) for v in metrics.values()):
+        raise RuntimeError(f"non-finite {label} metrics: {metrics}")
+    log(f"{label}: wall {wall * 1e3:.1f} ms (runs {runs(walls)}; host done issuing after "
+        f"{runs(hosts)}) = {1 / wall:.2f} steps/s, {frames / wall:.0f} mel frames/s; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    summary = trace_summary(torch, lambda: trainer.train_step(batch), wall)
+    extra = ""
+    if kernel is not None:
+        ms = sum(t for t, name in device_breakdown.last if kernel in name)
+        n = sum(c for name, c in device_breakdown.counts.items() if kernel in name)
+        extra = (f"; {kernel} {n} launch(es), {ms:.3f} ms "
+                 f"({ms / device_breakdown.kernel_sum:.2%} of kernel time)")
+    log(f"  trace: {summary}{extra}")
+    return wall
+
+
+def phase_gradtts_train_timing(torch, device, card, amp=False):
+    """The Grad-TTS train step at bench.py's shape (16 × 160 interspersed
+    tokens × 512 frames, full lengths, ``out_size`` 172, full width, dropout
+    on, gradtts/train.py's Adam; f32 with TF32 off, or bf16): wall, steps/s,
+    the profiler split with MAS's share, peak memory."""
+    from neuraltexttospeech_torch.cli.gradtts_train import make_loss_fn
+    from neuraltexttospeech_torch.models.gradtts import GradTTSConfig
+    from neuraltexttospeech_torch.train.harness import Trainer, TrainerConfig
+    from neuraltexttospeech_torch.train.state import OptimizerConfig
+
+    B, T_TEXT, T_MEL = 16, 160, 512
+    cfg = GradTTSConfig()
+    model = random_gradtts(cfg, 31, device, frames_per_token=3.2, gain=0.02)
+    trainer = Trainer(make_loss_fn(cfg.out_size), model,
+                      TrainerConfig(optimizer=OptimizerConfig(**GT_ADAM)), device,
+                      dtype=torch.bfloat16 if amp else None)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in gradtts_batch(
+        np.random.default_rng(32), B, T_TEXT, T_MEL, cfg.n_symbols, [T_TEXT] * B,
+        [T_MEL] * B).items()}
+    mode = "bf16 (--amp)" if amp else "f32 (TF32 off)"
+    step_timing(torch, trainer, batch, f"Grad-TTS train step {mode}, full width, dropout on: "
+                f"batch {B} x {T_TEXT} tokens x {T_MEL} frames, out_size {cfg.out_size}",
+                card, B * T_MEL, kernel="mas_kernel")
+    del trainer, model
+
+
+def phase_fastspeech2_train_timing(torch, device, card, amp=False):
+    """The FastSpeech 2 train step at bench.py's shape (16 × 128 tokens × 768
+    frames, 6 frames a token, full width, dropout on, fastspeech2/train.py's
+    noam Adam; f32 with TF32 off, or bf16): wall, steps/s, the profiler
+    split, peak memory."""
+    from neuraltexttospeech_torch.cli.fastspeech2_train import loss_fn
+    from neuraltexttospeech_torch.models.fastspeech2 import FastSpeech2, FastSpeech2Config
+    from neuraltexttospeech_torch.train.harness import Trainer, TrainerConfig
+    from neuraltexttospeech_torch.train.state import OptimizerConfig
+
+    B, T_TEXT, T_MEL = 16, 128, 768
+    torch.manual_seed(0)
+    trainer = Trainer(loss_fn, FastSpeech2(FastSpeech2Config()),
+                      TrainerConfig(optimizer=OptimizerConfig(**FS2_NOAM)), device,
+                      dtype=torch.bfloat16 if amp else None)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in fastspeech2_batch(
+        np.random.default_rng(33), B, T_TEXT, T_MEL, 148, [T_TEXT] * B, T_MEL // T_TEXT).items()}
+    mode = "bf16 (--amp)" if amp else "f32 (TF32 off)"
+    step_timing(torch, trainer, batch, f"FastSpeech 2 train step {mode}, full width, dropout on: "
+                f"batch {B} x {T_TEXT} tokens x {T_MEL} frames", card, B * T_MEL)
+    del trainer
+
+
 def main():
     import torch
 
@@ -1784,22 +2217,32 @@ def main():
         fastpitch = phase_fastpitch_training(torch, device, smi)
         diffwave_b1 = phase_diffwave_cli(torch, device, smi)
         phase_gradtts_serve(torch, device, smi)
+        gradtts = phase_gradtts_train_cli(torch, device, smi)
+        fs2_b1 = phase_fastspeech2_cli(torch, device, smi)
         # launches per step on the training paths (B1 and B2: the GAN step,
-        # f32 and bf16; MAS: the FastPitch step); serving's and dataset
-        # prep's B1 counts are checked in their phases
+        # f32 and bf16; MAS: the FastPitch step, and the Grad-TTS step's
+        # checked equal); serving's and dataset prep's B1 counts are checked
+        # in their phases
         b1["launches"], b2["launches"] = train["b1_per_step"], train["b2_per_step"]
         b2_bf16["launches"] = train_bf16["b2_per_step"]
         mas["launches"] = fastpitch["f32"]["mas_per_step"]
+        if gradtts["f32"]["mas_per_step"] != mas["launches"]:
+            raise RuntimeError(f"MAS per Grad-TTS step {gradtts['f32']['mas_per_step']}, per "
+                               f"FastPitch step {mas['launches']}")
         log(f"B1 launches: serving path {serving}, GAN training path {train['b1']} (bf16 "
-            f"{train_bf16['b1']}), FastPitch dataset prep {fastpitch['b1_prep']}; B2 launches: "
-            f"GAN training f32 {train['b2']}, bf16 {train_bf16['b2']}; MAS launches: FastPitch "
-            f"training f32 {fastpitch['f32']['mas']}, bf16 {fastpitch['bf16']['mas']}; B1 "
-            f"launches per DiffWave training batch {diffwave_b1}")
+            f"{train_bf16['b1']}), FastPitch dataset prep {fastpitch['b1_prep']}, FastSpeech 2 "
+            f"prep {fs2_b1}; B2 launches: GAN training f32 {train['b2']}, bf16 "
+            f"{train_bf16['b2']}; MAS launches: FastPitch training f32 "
+            f"{fastpitch['f32']['mas']}, bf16 {fastpitch['bf16']['mas']}, Grad-TTS training "
+            f"f32 {gradtts['f32']['mas']}, bf16 {gradtts['bf16']['mas']} (3 steps and 3 "
+            f"validation batches each); B1 launches per DiffWave training batch {diffwave_b1}")
         phase_reference(torch, device)
         phase_gan_reference(torch, device)
         phase_fastpitch_reference(torch, device)
         phase_diffwave_reference(torch, device)
         phase_gradtts_reference(torch, device)
+        phase_gradtts_train_reference(torch, device)
+        phase_fastspeech2_reference(torch, device)
         phase_timing(torch, device, smi)
         phase_train_timing(torch, train["trainer"], smi)
         phase_train_timing(torch, train_bf16["trainer"], smi)
@@ -1808,6 +2251,9 @@ def main():
         phase_fastpitch_timing(torch, device, smi, amp=True)
         phase_diffwave_timing(torch, device, smi)
         phase_gradtts_bench(torch, device, smi)
+        for amp in (False, True):
+            phase_gradtts_train_timing(torch, device, smi, amp)
+            phase_fastspeech2_train_timing(torch, device, smi, amp)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(json.dumps({"kernels": [b1, b2, b2_bf16, mas]}))

@@ -43,7 +43,7 @@ import torch
 
 __all__ = ["fastpitch_from_flax", "fastpitch_train_from_flax", "generator_from_flax",
            "fold_weight_norm", "hifigan_train_from_flax", "diffwave_from_flax",
-           "gradtts_from_flax"]
+           "gradtts_from_flax", "fastspeech2_from_flax"]
 
 _WN_EPS = 1e-12
 _WN = ".parametrizations.weight."
@@ -398,8 +398,10 @@ def _rezero(sd, key, r: _Reader, *path):
 
 def gradtts_from_flax(params: dict) -> Dict[str, torch.Tensor]:
     """flax ``GradTTS`` params → ``models.gradtts.GradTTS`` state dict (the
-    speaker table and projections when the tree has them). Raises on any
-    leaf it does not consume."""
+    speaker table and projections when the tree has them). The trees that
+    ``GradTTS.compute_loss`` and synthesis initialise are the same (dropout
+    holds no parameters), so this serves training too. Raises on any leaf it
+    does not consume."""
     tree = _params(_plain(params))
     r = _Reader(tree)
     sd: Dict[str, torch.Tensor] = {}
@@ -433,5 +435,28 @@ def gradtts_from_flax(params: dict) -> Dict[str, torch.Tensor]:
         res, att = res + 2, att + 1
     _unet_block(sd, f"{key}.final_block", r, *est, "UNetBlock_0")
     _conv2d(sd, f"{key}.final_conv", r, *est, f"Conv_{n_levels - 1}")
+    r.finish()
+    return sd
+
+
+def fastspeech2_from_flax(params: dict) -> Dict[str, torch.Tensor]:
+    """flax ``FastSpeech2`` params → ``models.fastspeech2.FastSpeech2`` state
+    dict (the postnet when the tree has one). Raises on any leaf it does not
+    consume."""
+    tree = _params(_plain(params))
+    r = _Reader(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    sd["encoder.word_emb.weight"] = _t(r.pop("encoder", "word_emb", "embedding"))
+    _fft(sd, "encoder", r, "encoder")
+    _fft(sd, "decoder", r, "decoder")
+    for name in ("duration_predictor", "pitch_predictor", "energy_predictor"):
+        _predictor(sd, name, r)
+    for name in ("pitch_embedding", "energy_embedding"):
+        sd[f"{name}.weight"] = _t(r.pop(name, "embedding"))
+    _dense(sd, "mel_linear", r, "mel_linear")
+    if "postnet_net" in tree:
+        for i in range(r.count("postnet_net", prefix="Conv")):
+            _conv(sd, f"postnet.convs.{i}", r, "postnet_net", f"Conv_{i}")
+            _layer_norm(sd, f"postnet.norms.{i}", r, "postnet_net", f"LayerNorm_{i}")
     r.finish()
     return sd

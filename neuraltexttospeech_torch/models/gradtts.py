@@ -1,10 +1,11 @@
-"""Grad-TTS — score-based diffusion text→mel, serving half.
+"""Grad-TTS — score-based diffusion text→mel: synthesis and training.
 
-Counterpart of ``neuraltexttospeech_tpu/models/gradtts.py:47-566`` without
-the training loss: the config (same defaults), ``fix_len_compatibility``,
-``generate_path``, the text encoder with windowed relative-position
+Counterpart of ``neuraltexttospeech_tpu/models/gradtts.py``: the config
+(same defaults), ``fix_len_compatibility``, ``generate_path``,
+``duration_loss``, the text encoder with windowed relative-position
 attention, the 2-D UNet score estimator, ``get_noise``, the reverse SDE/ODE
-Euler sampler (a loop over the steps) and synthesis (``GradTTS.forward``).
+Euler sampler (a loop over the steps), synthesis (``GradTTS.forward``) and
+the training loss (``GradTTS.compute_loss``).
 
 Layouts. The text encoder keeps JAX's ``[B, T, C]``. The UNet runs in
 PyTorch's NCHW, ``[B, C, n_feats, T]``, where JAX's is NHWC ``[B, n_feats,
@@ -28,12 +29,17 @@ parameters, so the attention's scores and weights are f32), GroupNorm's
 statistics, the masks and the sampler's state stay f32, as JAX's type
 promotion leaves them.
 
-Randomness (the terminal noise, the stochastic sampler's per-step noise)
-comes in as arguments or from a ``torch.Generator``. Dropout runs only when
-a call is given a generator for it (``nn/layers.py``); synthesis gives none.
+Randomness (the terminal noise, the stochastic sampler's per-step noise,
+and in the loss the segment cut's ``u``, the diffusion time ``t`` and the
+noise ``z``) comes in as arguments or from a ``torch.Generator``. Dropout
+runs only when a call is given a generator for it (``nn/layers.py``);
+synthesis gives none.
 
-The training half (``forward_diffusion``, ``loss_t``, ``compute_loss``,
-``duration_loss`` and the segment cut) is not here yet.
+The loss aligns text and mel with MAS (``ops/mas.py``: the CUDA kernel on
+the card) on the Gaussian log-prior, computed in f32 from ``mu_x`` and the
+mel in every mode; the path is a constant for autograd. The random
+``out_size`` segment is cut on the device by a gather at the offsets
+``int(u · (max(ylen − out_size, 0) + 1))``.
 """
 
 from __future__ import annotations
@@ -48,10 +54,12 @@ from torch.nn import functional as F
 
 from ..nn.layers import (Conv2d, ConvNorm, ConvTranspose2d, GroupNorm, LayerNorm, Linear,
                          dropout)
+from ..ops.mas import maximum_path
 from ..utils.masking import mask_from_lens
 
 __all__ = ["GradTTSConfig", "GradTTS", "TextEncoder", "GradLogPEstimator2D", "Diffusion",
-           "fix_len_compatibility", "generate_path", "get_noise", "same_pad"]
+           "fix_len_compatibility", "generate_path", "get_noise", "same_pad",
+           "duration_loss", "gaussian_log_prior", "cut_offsets", "cut_segments"]
 
 LN_EPS = 1e-4  # Grad-TTS's LayerNorm epsilon (not nn/layers.py's 1e-3)
 
@@ -102,6 +110,49 @@ def generate_path(duration: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     path = mask_from_lens(cum.reshape(-1), T_mel).reshape(B, T_text, T_mel).to(mask.dtype)
     path = path - F.pad(path, (0, 0, 1, 0))[:, :-1]
     return path * mask
+
+
+def duration_loss(logw: torch.Tensor, logw_hat: torch.Tensor,
+                  lengths: torch.Tensor) -> torch.Tensor:
+    """(reference ``model/utils.py:47-50``)."""
+    return torch.sum(torch.square(logw - logw_hat)) / torch.clamp_min(
+        torch.sum(lengths.float()), 1.0)
+
+
+def gaussian_log_prior(mu_x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The unit-variance Gaussian log-likelihood of each mel frame under each
+    token's ``mu``, [B, T_text, T_mel], in f32 whatever the inputs' type
+    (reference ``tts.py:236-253``): ``-0.5 Σ_c y² + y·μ − 0.5 Σ_c μ² + const``,
+    summed in JAX's order. mu_x [B, T_text, n_feats], y [B, T_mel, n_feats]."""
+    const = -0.5 * math.log(2 * math.pi) * mu_x.shape[-1]
+    mu_f, y_f = mu_x.float(), y.float()
+    return (-0.5 * torch.sum(y_f ** 2, dim=-1)[:, None, :]
+            + torch.matmul(mu_f, y_f.transpose(1, 2))
+            - 0.5 * torch.sum(mu_f ** 2, dim=-1)[:, :, None]
+            + const)
+
+
+def cut_offsets(u: torch.Tensor, y_lengths: torch.Tensor, out_size: int) -> torch.Tensor:
+    """Segment starts ``int(u · (max(ylen − out_size, 0) + 1))`` in f32, as
+    JAX computes them (``tts.py:275-329``)."""
+    max_offset = torch.clamp_min(y_lengths.long() - out_size, 0)
+    return (u.float() * (max_offset + 1).float()).to(torch.int64)
+
+
+def cut_segments(x: torch.Tensor, offsets: torch.Tensor, out_size: int,
+                 dim: int) -> torch.Tensor:
+    """``out_size`` steps of ``x`` along ``dim`` (1 or 2) from each row's
+    offset, by a gather on the device; a start past ``T − out_size`` is
+    clamped there, as ``lax.dynamic_slice`` clamps it."""
+    T = x.shape[dim]
+    start = torch.clamp(offsets, 0, T - out_size)
+    idx = start[:, None] + torch.arange(out_size, device=x.device)      # [B, out_size]
+    shape = [x.shape[0], 1, 1]
+    shape[dim] = out_size
+    idx = idx.reshape(shape)
+    size = list(x.shape)
+    size[dim] = out_size
+    return torch.gather(x, dim, idx.expand(size))
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
@@ -409,8 +460,8 @@ class GradLogPEstimator2D(nn.Module):
 
 
 class Diffusion(nn.Module):
-    """The reverse SDE/ODE of the score estimator (reference
-    ``diffusion.py:302-383``), serving half."""
+    """The forward and reverse SDE of the score estimator and its loss
+    (reference ``diffusion.py:302-383``)."""
 
     def __init__(self, config: GradTTSConfig):
         super().__init__()
@@ -444,9 +495,45 @@ class Diffusion(nn.Module):
             xt = (xt - dxt) * m
         return xt
 
+    def forward_diffusion(self, x0, mask, mu, t, z):
+        """``x_t`` of the forward SDE at times ``t`` [B] with noise ``z``
+        [B, n_feats, T]: ``(x_t, z)``, both masked."""
+        c = self.config
+        cum = get_noise(t[:, None, None], c.beta_min, c.beta_max, cumulative=True)
+        mean = x0 * torch.exp(-0.5 * cum) + mu * (1.0 - torch.exp(-0.5 * cum))
+        variance = 1.0 - torch.exp(-cum)
+        xt = mean + z * torch.sqrt(variance)
+        m = mask[:, None, :].to(x0.dtype)
+        return xt * m, z * m
+
+    def loss_t(self, x0, mask, mu, t, z, spk=None):
+        """The score-matching loss at times ``t`` with noise ``z``:
+        ``(loss, x_t)``."""
+        c = self.config
+        xt, z = self.forward_diffusion(x0, mask, mu, t, z)
+        cum = get_noise(t[:, None, None], c.beta_min, c.beta_max, cumulative=True)
+        est = self.estimator(xt, mask, mu, t, spk)
+        est = est * torch.sqrt(1.0 - torch.exp(-cum))
+        loss = torch.sum(torch.square(est + z)) / (
+            torch.clamp_min(torch.sum(mask.float()), 1.0) * c.n_feats)
+        return loss, xt
+
+    def compute_loss(self, x0, mask, mu, spk=None, offset: float = 1e-5,
+                     t: Optional[torch.Tensor] = None, z: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None):
+        """:meth:`loss_t` at ``t`` ~ U[offset, 1 − offset) and ``z`` ~ N(0, 1),
+        each drawn from ``generator`` unless given."""
+        if t is None:
+            t = torch.rand(x0.shape[0], generator=generator, device=x0.device)
+            t = torch.clamp_min(t * (1.0 - 2 * offset) + offset, offset)
+        if z is None:
+            z = torch.randn(x0.shape, generator=generator, device=x0.device)
+        return self.loss_t(x0, mask, mu, t.float(), z.float(), spk)
+
 
 class GradTTS(nn.Module):
-    """The model (reference ``model/tts.py``), synthesis."""
+    """The model (reference ``model/tts.py``): synthesis (:meth:`forward`)
+    and the training loss (:meth:`compute_loss`)."""
 
     def __init__(self, config: GradTTSConfig = GradTTSConfig()):
         super().__init__()
@@ -496,3 +583,46 @@ class GradTTS(nn.Module):
         dec = self.decoder.reverse_diffusion(z, y_mask, mu_y_t, n_timesteps, stoc, spk_v,
                                              generator=generator, noise=step_noise)
         return mu_y, dec.transpose(1, 2), attn, y_lengths
+
+    def compute_loss(self, x, x_lengths, y, y_lengths, spk=None,
+                     out_size: Optional[int] = None,
+                     generator: Optional[torch.Generator] = None,
+                     u: Optional[torch.Tensor] = None, t: Optional[torch.Tensor] = None,
+                     z: Optional[torch.Tensor] = None):
+        """``(dur_loss, prior_loss, diff_loss)`` (reference ``tts.py:193-356``).
+
+        x [B, T_text] ids, y [B, T_mel, n_feats] mels (T_mel a multiple of 4
+        when there is no cut). ``generator`` turns dropout on and draws what
+        is not given: the cut's ``u`` [B] (used only when ``out_size <
+        T_mel``), the diffusion time ``t`` [B] and the noise ``z`` [B,
+        n_feats, min(out_size, T_mel)].
+        """
+        c = self.config
+        spk_v = self._spk(spk)
+        mu_x, logw, x_mask = self.encoder(x, x_lengths, spk_v, generator=generator)
+        y_mask = mask_from_lens(y_lengths, y.shape[1])
+
+        log_prior = gaussian_log_prior(mu_x.detach(), y)
+        attn = maximum_path(log_prior.transpose(1, 2), x_lengths, y_lengths)
+        attn = attn.transpose(1, 2).detach()                  # [B, T_text, T_mel]
+
+        logw_hat = torch.log(1e-8 + torch.sum(attn, dim=-1)) * x_mask
+        dur_loss = duration_loss(logw, logw_hat, x_lengths)
+
+        if out_size is not None and out_size < y.shape[1]:
+            if u is None:
+                u = torch.rand(y.shape[0], generator=generator, device=y.device)
+            offsets = cut_offsets(u, y_lengths, out_size)
+            y = cut_segments(y, offsets, out_size, dim=1)
+            attn = cut_segments(attn, offsets, out_size, dim=2)
+            y_lengths = torch.clamp(y_lengths.long() - offsets, max=out_size)
+            y_mask = mask_from_lens(y_lengths, out_size)
+
+        mu_y = torch.matmul(attn.transpose(1, 2), mu_x.to(attn.dtype))   # [B, T_mel, n_feats]
+        diff_loss, _ = self.decoder.compute_loss(y.transpose(1, 2), y_mask,
+                                                 mu_y.transpose(1, 2), spk_v, t=t, z=z,
+                                                 generator=generator)
+        m = y_mask[:, :, None].float()
+        prior_loss = torch.sum(0.5 * (torch.square(y - mu_y) + math.log(2 * math.pi)) * m)
+        prior_loss = prior_loss / (torch.clamp_min(torch.sum(m), 1.0) * c.n_feats)
+        return dur_loss, prior_loss, diff_loss

@@ -1,7 +1,8 @@
 """Config persistence and the port's checkpoint format.
 
 Counterpart of the config half of ``neuraltexttospeech_tpu/models/registry.py``
-over the port's config classes. A port checkpoint is a directory that
+over the port's config classes, with its ``--override`` parser
+(:func:`apply_overrides`). A port checkpoint is a directory that
 holds ``model.pt`` (a ``torch.save``d state dict) and ``model_config.json``
 (``{"model": name, "config": {...}, "frontend": {...}}``, the same file the
 JAX training CLIs write).
@@ -18,17 +19,20 @@ import torch
 
 from .diffwave import DiffWave, DiffWaveConfig
 from .fastpitch import FastPitch, FastPitchConfig
+from .fastspeech2 import FastSpeech2, FastSpeech2Config
 from .gradtts import GradTTS, GradTTSConfig
 from .hifigan import Generator, HiFiGANConfig
 
 __all__ = ["CONFIG_REGISTRY", "MODEL_REGISTRY", "config_to_dict", "config_from_dict",
            "find_model_config", "load_model_config", "load_frontend_config",
-           "save_model_config", "save_checkpoint", "load_checkpoint"]
+           "save_model_config", "save_checkpoint", "load_checkpoint", "apply_overrides"]
 
 MODEL_REGISTRY: Dict[str, type] = {"FastPitch": FastPitch, "HiFiGAN": Generator,
-                                   "DiffWave": DiffWave, "GradTTS": GradTTS}
+                                   "DiffWave": DiffWave, "GradTTS": GradTTS,
+                                   "FastSpeech2": FastSpeech2}
 CONFIG_REGISTRY: Dict[str, type] = {"FastPitch": FastPitchConfig, "HiFiGAN": HiFiGANConfig,
-                                    "DiffWave": DiffWaveConfig, "GradTTS": GradTTSConfig}
+                                    "DiffWave": DiffWaveConfig, "GradTTS": GradTTSConfig,
+                                    "FastSpeech2": FastSpeech2Config}
 WEIGHTS_FILE = "model.pt"
 
 
@@ -58,6 +62,27 @@ def config_from_dict(config_cls: type, data: dict):
     kw = {f.name: _tuplify(data[f.name]) for f in dataclasses.fields(config_cls)
           if f.name in data}
     return config_cls(**kw)
+
+
+def apply_overrides(config, overrides):
+    """Apply ``["key=value", ...]`` onto a config dataclass; dotted keys reach
+    nested configs (``backbone.module_repeat=1``). Values parse as JSON with
+    a plain-string fallback; lists become tuples (JAX ``registry.py:91-111``)."""
+    for item in overrides or []:
+        key, _, raw = item.partition("=")
+        try:
+            value = _tuplify(json.loads(raw))
+        except (ValueError, TypeError):
+            value = raw
+        config = _replace_path(config, key.strip().split("."), value)
+    return config
+
+
+def _replace_path(config, parts, value):
+    if len(parts) == 1:
+        return dataclasses.replace(config, **{parts[0]: value})
+    child = _replace_path(getattr(config, parts[0]), parts[1:], value)
+    return dataclasses.replace(config, **{parts[0]: child})
 
 
 def find_model_config(path) -> pathlib.Path | None:

@@ -2,8 +2,9 @@
 
 Counterpart of ``neuraltexttospeech_tpu/nn/transformer.py``: sinusoidal
 positional embeddings, ``MultiHeadAttn`` with a fused QKV projection,
-``PositionwiseConvFF``, post-LN residual layers and the ``FFTransformer``
-wrapper. Dropout sits where JAX has it (attention probabilities, the
+``PositionwiseConvFF`` (its second conv's kernel ``kernel_size_2``, 1 in
+FastSpeech 2's conv 9 → ReLU → conv 1), post-LN residual layers and the
+``FFTransformer`` wrapper. Dropout sits where JAX has it (attention probabilities, the
 attention and FFN outputs, the embedding) and runs only when a call is
 given a generator (``nn/layers.py``).
 
@@ -77,13 +78,14 @@ class MultiHeadAttn(nn.Module):
 
 
 class PositionwiseConvFF(nn.Module):
-    """conv(k) -> ReLU -> conv(k) -> dropout, post-LN residual."""
+    """conv(k) -> ReLU -> conv(k2) -> dropout, post-LN residual; ``k2``
+    (``kernel_size_2``) defaults to ``k``."""
 
     def __init__(self, d_model: int, d_inner: int, kernel_size: int = 3,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, kernel_size_2: Optional[int] = None):
         super().__init__()
         self.conv1 = ConvNorm(d_model, d_inner, kernel_size)
-        self.conv2 = ConvNorm(d_inner, d_model, kernel_size)
+        self.conv2 = ConvNorm(d_inner, d_model, kernel_size_2 or kernel_size)
         self.layer_norm = LayerNorm(d_model, eps=LN_EPS)
         self.p_dropout = dropout
 
@@ -97,10 +99,11 @@ class FFTransformerLayer(nn.Module):
     """Attention + ConvFF block with the mask re-applied after each."""
 
     def __init__(self, n_head: int, d_model: int, d_head: int, d_inner: int,
-                 kernel_size: int, dropout: float = 0.0, dropatt: float = 0.0):
+                 kernel_size: int, dropout: float = 0.0, dropatt: float = 0.0,
+                 kernel_size_2: Optional[int] = None):
         super().__init__()
         self.attn = MultiHeadAttn(n_head, d_model, d_head, dropout, dropatt)
-        self.ff = PositionwiseConvFF(d_model, d_inner, kernel_size, dropout)
+        self.ff = PositionwiseConvFF(d_model, d_inner, kernel_size, dropout, kernel_size_2)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -116,7 +119,8 @@ class FFTransformer(nn.Module):
     def __init__(self, n_layer: int, n_head: int, d_model: int, d_head: int,
                  d_inner: int, kernel_size: int, embed_input: bool = True,
                  n_emb: Optional[int] = None, padding_idx: int = 0, dropout: float = 0.0,
-                 dropatt: float = 0.0, dropemb: float = 0.0):
+                 dropatt: float = 0.0, dropemb: float = 0.0,
+                 kernel_size_2: Optional[int] = None):
         super().__init__()
         self.d_model = d_model
         self.p_dropemb = dropemb
@@ -125,7 +129,8 @@ class FFTransformer(nn.Module):
         if embed_input:
             self.word_emb = Embedding(n_emb, d_model)
         self.layers = nn.ModuleList(
-            FFTransformerLayer(n_head, d_model, d_head, d_inner, kernel_size, dropout, dropatt)
+            FFTransformerLayer(n_head, d_model, d_head, d_inner, kernel_size, dropout, dropatt,
+                               kernel_size_2)
             for _ in range(n_layer))
 
     def forward(self, x: torch.Tensor, seq_lens: Optional[torch.Tensor] = None,

@@ -76,7 +76,7 @@ def test_chip_smoke_fails_outside_the_repo(tmp_path):
 
 
 @pytest.mark.parametrize("cli", ["fastpitch_infer", "hifigan_infer", "diffwave_infer",
-                                 "gradtts_infer"])
+                                 "gradtts_infer", "fastspeech2_infer"])
 def test_cli_without_device_raises_when_no_gpu(cli, tmp_path):
     import importlib
 
@@ -103,7 +103,9 @@ def test_resolve_device_policy():
             resolve_device("cuda")
 
 
-@pytest.mark.parametrize("cli", ["diffwave_train", "hifigan_train", "fastpitch_train"])
+@pytest.mark.parametrize("cli", ["diffwave_train", "hifigan_train", "fastpitch_train",
+                                 "gradtts_train", "fastspeech2_train",
+                                 "fastspeech2_prepare_dataset"])
 def test_trainer_cli_without_device_raises_when_no_gpu(cli, tmp_path):
     import importlib
 
@@ -112,8 +114,13 @@ def test_trainer_cli_without_device_raises_when_no_gpu(cli, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")
     mod = importlib.import_module(f"neuraltexttospeech_torch.cli.{cli}")
-    argv = ["-o", str(tmp_path / "out"), "--training-files", str(tmp_path / "list.txt")]
-    if cli == "fastpitch_train":
+    argv = {"fastspeech2_train": ["-o", str(tmp_path / "out"), "-d", str(tmp_path / "feats")],
+            "fastspeech2_prepare_dataset": ["--raw-path", str(tmp_path / "raw"),
+                                            "--textgrid-path", str(tmp_path / "tg"),
+                                            "--out-dir", str(tmp_path / "out")],
+            }.get(cli, ["-o", str(tmp_path / "out"), "--training-files",
+                        str(tmp_path / "list.txt")])
+    if cli in ("fastpitch_train", "gradtts_train"):
         argv += ["-d", str(tmp_path / "feats")]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mod.main(argv)

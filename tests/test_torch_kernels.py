@@ -605,3 +605,92 @@ def test_vocoder_dataset_on_the_card_runs_b1_twice_a_batch(cuda_device, tmp_path
         np.testing.assert_array_equal(y["audio"].cpu().numpy(), x["audio"].numpy())
         for k in ("mel", "mel_loss"):
             np.testing.assert_allclose(y[k].cpu().numpy(), x[k].numpy(), **TOL)
+
+
+def _gradtts_log_prior(device, b=16, t_mel=512, t_text=160, seed=0):
+    """Grad-TTS's Gaussian log-prior of random mu and mels, as MAS takes it
+    ([B, T_mel, T_text]); the Grad-TTS step's shape by default."""
+    from neuraltexttospeech_torch.models.gradtts import gaussian_log_prior
+
+    g = torch.Generator().manual_seed(seed)
+    mu, y = torch.randn(b, t_text, 80, generator=g), torch.randn(b, t_mel, 80, generator=g)
+    return gaussian_log_prior(mu.to(device), y.to(device)).transpose(1, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("full", [True, False])
+def test_cuda_mas_kernel_at_the_gradtts_step_shape(cuda_device, full):
+    """16 × 512 frames × 160 tokens (``bench.py:519``), bit for bit, at full
+    lengths and at mixed ones."""
+    la = _gradtts_log_prior(cuda_device)
+    rng = np.random.default_rng(1)
+    in_lens = torch.tensor([160] * 16 if full else rng.integers(40, 161, 16), device=cuda_device)
+    out_lens = torch.tensor([512] * 16 if full else rng.integers(200, 513, 16),
+                            device=cuda_device)
+    before = mas_kernel.maximum_path.launches
+    got = mas_kernel.maximum_path(la, in_lens, out_lens)
+    torch.cuda.synchronize()
+    assert mas_kernel.maximum_path.launches == before + 1
+    assert torch.equal(got, mas_kernel.maximum_path_reference(la, in_lens, out_lens))
+    assert torch.equal(got.sum(dim=(1, 2)).long(), out_lens.long())
+
+
+@pytest.mark.gpu
+def test_cuda_gradtts_loss_launches_mas_once(cuda_device):
+    from neuraltexttospeech_torch.models.gradtts import GradTTS, GradTTSConfig
+
+    torch.manual_seed(0)
+    model = GradTTS(GradTTSConfig(n_enc_channels=32, filter_channels=64, filter_channels_dp=32,
+                                  n_enc_layers=1, dec_dim=8)).to(cuda_device)
+    x = torch.randint(1, 148, (2, 16), device=cuda_device)
+    y = torch.randn(2, 64, 80, device=cuda_device)
+    lens = (torch.tensor([16, 9], device=cuda_device), torch.tensor([64, 40], device=cuda_device))
+    before = mas_kernel.maximum_path.launches
+    losses = model.compute_loss(x, lens[0], y, lens[1], out_size=32,
+                                generator=torch.Generator(device=cuda_device).manual_seed(1))
+    torch.cuda.synchronize()
+    assert mas_kernel.maximum_path.launches == before + 1
+    assert all(torch.isfinite(v) for v in losses)
+
+
+def _textgrid(intervals, xmax):
+    items = "\n".join(f"        intervals [{i + 1}]:\n            xmin = {s}\n"
+                      f"            xmax = {e}\n            text = \"{p}\""
+                      for i, (s, e, p) in enumerate(intervals))
+    return ("File type = \"ooTextFile\"\nObject class = \"TextGrid\"\n\nxmin = 0\n"
+            f"xmax = {xmax}\ntiers? <exists>\nsize = 1\nitem []:\n    item [1]:\n"
+            "        class = \"IntervalTier\"\n        name = \"phones\"\n        xmin = 0\n"
+            f"        xmax = {xmax}\n        intervals: size = {len(intervals)}\n{items}\n")
+
+
+@pytest.mark.gpu
+def test_fs2_preprocessor_on_the_card_runs_b1_once_a_wav(cuda_device, tmp_path):
+    """``FS2Preprocessor(device=cuda)``, FastSpeech 2's prep: one utterance's
+    log-mel through B1 on the card, within B1's log-mel budget of the host's
+    plain path; the same durations, and pitch and energy as the host's."""
+    from neuraltexttospeech_torch.data.filelist import save_wav
+    from neuraltexttospeech_torch.data.fs2_preprocess import FS2Preprocessor
+
+    intervals = [(0.0, 0.2, "sil"), (0.2, 0.9, "HH"), (0.9, 1.6, "AY1"), (1.6, 2.3, "DH"),
+                 (2.3, 3.1, "IY1"), (3.1, 3.3, "sp")]
+    t = np.arange(int(22050 * 3.3)) / 22050
+    save_wav(str(tmp_path / "u.wav"), 0.4 * np.sin(2 * np.pi * 180 * t)
+             + 0.01 * np.random.default_rng(0).standard_normal(t.size), 22050)
+    (tmp_path / "u.TextGrid").write_text(_textgrid(intervals, 3.3))
+    args = ("u", "u", str(tmp_path / "u.wav"), str(tmp_path / "u.TextGrid"))
+    host = FS2Preprocessor(str(tmp_path), str(tmp_path), str(tmp_path / "host"), device="cpu")
+    card = FS2Preprocessor(str(tmp_path), str(tmp_path), str(tmp_path / "card"),
+                           device=cuda_device)
+    want = host.process_utterance(*args)
+    mel_kernel.fused_frames_to_mel.launches = 0
+    got = card.process_utterance(*args)
+    assert mel_kernel.fused_frames_to_mel.launches == 1
+    assert (got["phones"], got["n_frames"]) == (want["phones"], want["n_frames"])
+    for kind in ("duration", "mel"):
+        g, w = (np.load(tmp_path / d / f"u_{kind}.npy") for d in ("card", "host"))
+        if kind == "duration":
+            np.testing.assert_array_equal(g, w)
+        else:
+            np.testing.assert_allclose(g, w, **TOL)
+    np.testing.assert_array_equal(got["pitch"], want["pitch"])  # from the wav, on the host
+    np.testing.assert_allclose(got["energy"], want["energy"], atol=1e-3, rtol=0)
