@@ -51,14 +51,23 @@ Phases, each raising on failure:
    the card (B1 once a wav; each log-mel held against the host's and B1's
    twin), ``fastspeech2_train`` at full width (f32 and ``--amp``, 2 steps
    then ``--resume``) and ``fastspeech2_infer`` with the v1 vocoder.
+   TalkNet 2: ``talknet_train --model asr`` (QuartzNet 5×5) on the same 16
+   wavs and their ``SENTENCES`` transcripts, batch 16, 2 steps then
+   ``--resume`` for a 3rd, the dataset's log-mels through B1 on the card
+   (once an utterance an epoch, counted, and held against its twin); the
+   duration, pitch and spectrogram heads on FastSpeech 2's prepared corpus,
+   f32 and ``--amp``, 2 steps then ``--resume``; ``talknet_infer`` of the 16
+   sentences with the v1 vocoder, f32 and ``--amp``.
 7. Reference checks: at a small width the card's text → wav and
    copy-synthesis agree with the same weights on the CPU, and so do one
    GAN step of the small (``TINY``) generator with the full MPD and MSD,
    one FastPitch train step of the golden's small FastPitch (dropout off),
    one small DiffWave train step and 6-step sample, a small Grad-TTS
-   synthesis, and one small Grad-TTS and one small FastSpeech 2 train step
-   (the Grad-TTS step's MAS paths equal on both devices), each in f32 and
-   in bf16 (bf16 by the yardstick of
+   synthesis, one small Grad-TTS and one small FastSpeech 2 train step
+   (the Grad-TTS step's MAS paths equal on both devices), and one step of a
+   small QuartzNet ASR and of each small TalkNet 2 head (their BatchNorm
+   buffers too), each in f32 and in bf16 (not the ASR, whose ``--amp`` is
+   ignored) (bf16 by the yardstick of
    tests/test_torch_bf16.py with the CPU's f32 run in the place of JAX's).
 8. Timing: text → wav at the ``bench.py`` shape (batch 8 × 128 tokens,
    1024 mel frames), f32 and bf16, in wall seconds per audio second; the v1
@@ -70,7 +79,10 @@ Phases, each raising on failure:
    Grad-TTS train step (16 × 160 tokens × 512 frames, ``out_size`` 172,
    with MAS's share) and the FastSpeech 2 train step (16 × 128 tokens × 768
    frames), each f32 and bf16 with a profiler split, idle share and launch
-   count.
+   count; TalkNet 2 at full width: the spectrogram head's step at 16 × 128
+   tokens × 768 frames (f32 and ``--amp``), the duration and pitch heads'
+   steps, the ASR step at 16 × 768 frames with 160 labels, and text → wav
+   through the three heads and v1 at 8 × 128 tokens (f32 and ``--amp``).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -1991,20 +2003,24 @@ def phase_fastspeech2_cli(torch, device, card):
     return b1_prep
 
 
-def train_steps_card_and_cpu(torch, make_model, weights, loss_fn, opt, batch, device):
+def train_steps_card_and_cpu(torch, make_model, weights, loss_fn, opt, batch, device,
+                             amps=(False, True), model_amp=False):
     """One ``Trainer`` step from ``weights`` on ``batch`` (numpy), f32 and
-    bf16, on ``device`` and on the CPU: {(amp, device type): (metrics,
-    parameters, gradients)}, the gradients from Adam's first moment."""
+    bf16 (``amps``), on ``device`` and on the CPU: {(amp, device type):
+    (metrics, parameters, gradients)}, the gradients from Adam's first
+    moment. With ``model_amp`` the model takes bf16 from its own config
+    (``make_model(amp)``, TalkNet 2's heads) and the trainer sets no compute
+    dtype."""
     from neuraltexttospeech_torch.train.harness import Trainer, TrainerConfig
     from neuraltexttospeech_torch.train.state import OptimizerConfig
 
     steps = {}
-    for amp in (False, True):
+    for amp in amps:
         for dev in (device, torch.device("cpu")):
-            m = make_model()
+            m = make_model(amp) if model_amp else make_model()
             m.load_state_dict(weights)
             trainer = Trainer(loss_fn, m, TrainerConfig(optimizer=OptimizerConfig(**opt)), dev,
-                              dtype=torch.bfloat16 if amp else None)
+                              dtype=torch.bfloat16 if amp and not model_amp else None)
             metrics = trainer.train_step({k: torch.as_tensor(v, device=dev)
                                           for k, v in batch.items()})
             # the first Adam moment after one step is (1 - b1) g
@@ -2186,6 +2202,290 @@ def phase_fastspeech2_train_timing(torch, device, card, amp=False):
     del trainer
 
 
+TN_ADAM = dict(learning_rate=1e-3, beta1=0.9, beta2=0.999, eps=1e-8, grad_clip_norm=1.0)
+
+
+def phase_talknet_cli(torch, device, card):
+    """TalkNet 2 through its CLIs at full width. The ASR (QuartzNet 5×5) on
+    the FastPitch phase's 16 synthetic wavs with their ``SENTENCES``
+    transcripts, batch 16, 2 steps then ``--resume`` for a 3rd: the dataset
+    computes each utterance's log-mel on the card (B1 once an utterance an
+    epoch, counted), and B1 there is held against its twin (atol 1e-3, rtol
+    1e-4) on each utterance's frames, and a card batch against the host's.
+    The duration, pitch and spectrogram heads on the FastSpeech 2 phase's
+    prepared corpus (batch 12), f32 and ``--amp``, 2 steps then
+    ``--resume`` for a 3rd; then ``talknet_infer`` of the 16 sentences with
+    the serving phase's HiFi-GAN v1, f32 and ``--amp``: finite wavs of
+    ``n · 256`` samples. Returns B1's ASR launches."""
+    from scipy.io import wavfile
+
+    from neuraltexttospeech_torch.audio.stft import STFTConfig, windowed_frames
+    from neuraltexttospeech_torch.cli import talknet_infer, talknet_train
+    from neuraltexttospeech_torch.data.asr_dataset import ASRDataset
+    from neuraltexttospeech_torch.data.filelist import load_wav
+    from neuraltexttospeech_torch.models.registry import load_checkpoint, save_checkpoint
+    from neuraltexttospeech_torch.models.talknet import GraphemeDuration
+    from neuraltexttospeech_torch.ops import gouter_kernel, mas_kernel, mel_kernel
+
+    counted = (mel_kernel.fused_frames_to_mel, gouter_kernel.gouter_tap_dots_kernel,
+               mas_kernel.maximum_path)
+
+    def run_cli(tag, argv, expect_dtype):
+        for fn in counted:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        first = talknet_train.main(argv + ["--epochs", "2"])
+        resumed = talknet_train.main(argv + ["--epochs", "3", "--resume"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        trainer = resumed["trainer"]
+        if ((first["steps"], resumed["steps"], trainer.step) != (2, 1, 3)
+                or resumed["config"].dtype != expect_dtype):
+            raise RuntimeError(f"TalkNet 2 {tag}: {first['steps']} + {resumed['steps']} steps, "
+                               f"step {trainer.step}, dtype {resumed['config'].dtype}")
+        state = trainer.model.state_dict()
+        for run in (first, resumed):
+            if not run["metrics"] or not all(np.isfinite(v) for v in run["metrics"].values()):
+                raise RuntimeError(f"non-finite or missing TalkNet 2 {tag} metrics: {run}")
+        if any(v.dtype != torch.float32 or not torch.isfinite(v).all() for v in state.values()):
+            raise RuntimeError(f"TalkNet 2 {tag}: parameters or BatchNorm buffers not finite f32")
+        return resumed, wall, tuple(fn.launches for fn in counted)
+
+    filelist = WORK / "fp_train.txt"
+    lines = filelist.read_text().splitlines()
+    resumed, wall, (b1, b2, mas) = run_cli(
+        "asr", ["--model", "asr", "-o", str(WORK / "tn_asr"), "-d", str(filelist), "-bs", "16",
+                "--steps-per-epoch", "1"], None)
+    if (b1, b2, mas) != (3 * len(lines), 0, 0):
+        raise RuntimeError(f"the ASR path launched B1, B2, MAS {(b1, b2, mas)} times in 3 epochs "
+                           f"of {len(lines)} utterances; expected {3 * len(lines)}, 0, 0")
+    n_params = sum(p.numel() for p in resumed["trainer"].model.parameters())
+    log(f"TalkNet 2 ASR training path: QuartzNet 5x5 ({n_params / 1e6:.2f}M parameters), batch 16, "
+        f"3 steps (2, then --resume 1) in {wall:.1f} s with set-up and checkpoints; B1 launches "
+        f"{b1} ({b1 // 3} an epoch, one an utterance); last epoch "
+        + " ".join(f"{k}={v:.4f}" for k, v in sorted(resumed["metrics"].items())) + f" [{card}]")
+    # B1 at the ASR dataset's call sites: against its twin on each
+    # utterance's frames, and a card batch against the host's
+    cfg, d_twin, n_frames = STFTConfig(), 0.0, 0
+    for line in lines:
+        audio = torch.as_tensor(load_wav(line.split("|")[0], SR)[0], device=device)
+        frames = windowed_frames(audio, 1024, HOP, 1024).contiguous()
+        got, twin = (mel_kernel.fused_frames_to_mel(frames, cfg),
+                     mel_kernel.frames_to_mel_reference(frames, cfg))
+        torch.testing.assert_close(got, twin, atol=1e-3, rtol=1e-4)
+        d_twin, n_frames = max(d_twin, (got - twin).abs().max().item()), n_frames + len(frames)
+    host = next(ASRDataset(str(filelist), "cpu").batches(16, seed=1234))
+    on_card = next(ASRDataset(str(filelist), device).batches(16, seed=1234))
+    np.testing.assert_allclose(on_card["mel"].cpu().numpy(), host["mel"].numpy(), atol=1e-3,
+                               rtol=1e-4)
+    for k in ("mel_lens", "labels", "label_lens"):
+        np.testing.assert_array_equal(on_card[k], host[k])
+    d_host = (on_card["mel"].cpu() - host["mel"]).abs().max().item()
+    log(f"  B1 at the ASR call sites: {len(lines)} utterances ({n_frames} frames), B1 vs its twin "
+        f"on the card max|diff| {d_twin:.3e}, the card's batch vs the host's {d_host:.3e} (atol "
+        f"1e-3, rtol 1e-4)")
+
+    pre = WORK / "fs2_pre"
+    for tag, flags in (("f32", []), ("bf16", ["--amp"])):
+        for head in ("duration", "pitch", "spectrogram"):
+            resumed, wall, counts = run_cli(
+                f"{head} ({tag})", ["--model", head, "-o", str(WORK / f"tn_{head}_{tag}"), "-d",
+                                    str(pre), "-bs", "12", "--steps-per-epoch", "1"] + flags,
+                torch.bfloat16 if flags else None)
+            if any(counts):
+                raise RuntimeError(f"the TalkNet 2 {head} step ({tag}) launched B1, B2, MAS "
+                                   f"{counts} times; expected none")
+            log(f"TalkNet 2 {head} training path ({tag}): full width, batch 12, 3 steps (2, then "
+                f"--resume 1) in {wall:.1f} s with set-up and checkpoints; last losses "
+                + " ".join(f"{k}={v:.4f}" for k, v in sorted(resumed["metrics"].items()))
+                + f" [{card}]")
+
+    # serving: the trained heads, the duration head's output bias set to 6
+    # frames (3 steps leave its durations near 0: zero-length outputs)
+    step3 = WORK / "tn_duration_f32" / "checkpoints" / "3"
+    model, config = load_checkpoint(step3, "TalkNet2", device, model_cls=GraphemeDuration)
+    with torch.no_grad():
+        model.backbone.out.bias.fill_(6.0)
+    fe = json.loads((step3 / "model_config.json").read_text())["frontend"]
+    served = save_checkpoint(WORK / "tn_serve_duration", "TalkNet2", config, model.state_dict(),
+                             fe)
+    for tag, flags in (("f32", []), ("bf16", ["--amp"])):
+        out = WORK / f"tn_wavs_{tag}"
+        t0 = time.perf_counter()
+        talknet_infer.main(["--duration-checkpoint", str(served), "--pitch-checkpoint",
+                            str(WORK / "tn_pitch_f32"), "--spectrogram-checkpoint",
+                            str(WORK / "tn_spectrogram_f32" / "checkpoints"),
+                            "--hifigan-checkpoint", str(WORK / "gt_serve" / "hifigan"), "-i",
+                            str(WORK / "gt_sentences.txt"), "-o", str(out), "-bs", "8"] + flags)
+        torch.cuda.synchronize()
+        frames = 0
+        for j in range(len(SENTENCES)):
+            mel = np.load(out / f"utt_{j:04d}_mel.npy")
+            sr, audio = wavfile.read(out / f"utt_{j:04d}.wav")
+            if (mel.ndim != 2 or mel.shape[1] != 80 or not mel.shape[0]
+                    or not np.isfinite(mel).all() or sr != SR
+                    or audio.shape != (mel.shape[0] * HOP,) or not np.isfinite(audio).all()):
+                raise RuntimeError(f"talknet_infer ({tag}) utterance {j}: mel {mel.shape}, "
+                                   f"audio {audio.shape}")
+            frames += mel.shape[0]
+        log(f"TalkNet 2 serving path ({tag}): {len(SENTENCES)} sentences through the three "
+            f"heads and HiFi-GAN v1, batch 8, {frames} frames in {time.perf_counter() - t0:.2f} s "
+            f"(first call, checkpoint loads included); mels and wavs of n · hop samples, finite "
+            f"[{card}]")
+    return b1
+
+
+def check_buffers(label, steps):
+    """The BatchNorm buffers after a step, card vs CPU, at rtol 1e-4 / atol
+    1e-5, for each mode in ``steps``; logs the largest difference."""
+    worst = {}
+    for amp in sorted({a for a, _ in steps}):
+        card, cpu = steps[(amp, "cuda")][1], steps[(amp, "cpu")][1]
+        keys = [k for k in cpu if "running_" in k]
+        if not keys:
+            raise RuntimeError(f"{label}: no BatchNorm buffers in the state dict")
+        for k in keys:
+            np.testing.assert_allclose(card[k].numpy(), cpu[k].numpy(), rtol=1e-4, atol=1e-5,
+                                       err_msg=f"{label} {'bf16' if amp else 'f32'} {k}")
+        worst["bf16" if amp else "f32"] = max((card[k] - cpu[k]).abs().max().item() for k in keys)
+    log(f"reference: {label}: {len(keys)} BatchNorm buffers card vs CPU max|diff| "
+        + ", ".join(f"{m} {d:.2e}" for m, d in worst.items()) + " (rtol 1e-4, atol 1e-5)")
+
+
+def phase_talknet_reference(torch, device):
+    """One train step of a small QuartzNet ASR and of each small TalkNet 2
+    head (widths 64/128 at the real kernels 33, 39 and 87, dropout off),
+    batch 3: card vs CPU from the same weights at the trainer tolerances,
+    the BatchNorm buffers by :func:`check_buffers`, and the heads' ``--amp``
+    steps (bf16 from the head's config) by :func:`check_bf16_step`."""
+    from neuraltexttospeech_torch.cli.talknet_train import HEADS, LOSSES
+    from neuraltexttospeech_torch.models.talknet import QuartzNet, QuartzNetConfig, TalkNet2Config
+
+    bb = QuartzNetConfig(module_repeat=2, block_params=((64, 33), (64, 39)), initial_filters=64,
+                         penultimate_filters=64, final_filters=128)
+    rng = np.random.default_rng(41)
+    mel_lens = np.asarray([128, 101, 77], np.int32)
+    labels = rng.integers(1, 29, (3, 32)).astype(np.int32)
+    label_lens = np.asarray([30, 20, 12], np.int32)
+    labels[np.arange(32)[None] >= label_lens[:, None]] = 0
+    asr_batch = {"mel": (rng.standard_normal((3, 128, 80))
+                         * (np.arange(128)[None, :, None] < mel_lens[:, None, None])
+                         ).astype(np.float32),
+                 "mel_lens": mel_lens, "labels": labels, "label_lens": label_lens}
+
+    def make_asr(amp=False):
+        m = QuartzNet(bb)
+        m.p_dropout = 0.0
+        return m
+
+    models = {"asr": (make_asr, asr_batch, (False,))}
+    for kind, cls in HEADS.items():
+        def make(amp=False, cls=cls):
+            m = cls(TalkNet2Config(emb_dim=64, backbone=bb,
+                                   dtype=torch.bfloat16 if amp else None))
+            m.backbone.p_dropout = 0.0
+            return m
+
+        models[kind] = (make, fastspeech2_batch(rng, 3, 16, 64, 148, [16, 11, 7], 3),
+                        (False, True))
+    for kind, (make, batch, amps) in models.items():
+        torch.manual_seed(42)
+        weights = {k: v.clone() for k, v in make().state_dict().items()}
+        steps = train_steps_card_and_cpu(torch, make, weights, LOSSES[kind], TN_ADAM, batch,
+                                         device, amps=amps, model_amp=True)
+        label = f"small TalkNet 2 {kind} train step"
+        check_f32_step(label, steps)
+        check_buffers(label, steps)
+        if True in amps:
+            check_bf16_step(label, *({k: v[i] for k, v in steps.items()} for i in range(3)),
+                            TN_ADAM["learning_rate"])
+
+
+def phase_talknet_timing(torch, device, card):
+    """TalkNet 2 at full width (``TalkNet2Config()``: QuartzNet 5×5, widths
+    256/512, final 1024, emb 256, 80 mels), dropout on, the CLI's Adam: the
+    spectrogram head's step at bench.py's FastSpeech 2 shape (16 × 128
+    tokens × 768 frames, 6 frames a token), f32 (TF32 off) and ``--amp``;
+    the duration head at 16 × 128 and the pitch head at 16 × 128 × 768
+    (f32); the ASR step at 16 × 768 frames with 160 labels; then serving
+    text → wav through the three heads (the duration head's output at 6
+    frames a token) and HiFi-GAN v1 at 8 × 128 tokens, ``max_mel_len`` 1024,
+    as an RTF, f32 and ``--amp``."""
+    from neuraltexttospeech_torch.cli.hifigan_infer import vocode
+    from neuraltexttospeech_torch.cli.talknet_infer import synth
+    from neuraltexttospeech_torch.cli.talknet_train import HEADS, LOSSES, optimizer_config
+    from neuraltexttospeech_torch.models.hifigan import Generator, HiFiGANConfig
+    from neuraltexttospeech_torch.models.talknet import QuartzNet, TalkNet2Config
+    from neuraltexttospeech_torch.train.harness import Trainer, TrainerConfig
+
+    B, T_TEXT, T_MEL = 16, 128, 768
+    batch = {k: torch.as_tensor(v, device=device) for k, v in fastspeech2_batch(
+        np.random.default_rng(34), B, T_TEXT, T_MEL, 148, [T_TEXT] * B, T_MEL // T_TEXT).items()}
+    out = {}
+    for kind, amp in (("spectrogram", False), ("spectrogram", True), ("duration", False),
+                      ("pitch", False)):
+        torch.manual_seed(0)
+        model = HEADS[kind](TalkNet2Config(dtype=torch.bfloat16 if amp else None))
+        trainer = Trainer(LOSSES[kind], model, TrainerConfig(optimizer=optimizer_config(1e-3)),
+                          device)
+        mode = "bf16 (--amp)" if amp else "f32 (TF32 off)"
+        shape = f"{B} x {T_TEXT} tokens" + ("" if kind == "duration" else f" x {T_MEL} frames")
+        out[kind, amp] = step_timing(
+            torch, trainer, batch, f"TalkNet 2 {kind} train step {mode}, full width, dropout "
+            f"on: batch {shape}", card, B * T_MEL)
+        del trainer, model
+    rng = np.random.default_rng(35)
+    asr = {"mel": torch.as_tensor(rng.standard_normal((B, T_MEL, 80)).astype(np.float32),
+                                  device=device),
+           "mel_lens": torch.full((B,), T_MEL, dtype=torch.int32, device=device),
+           "labels": torch.as_tensor(rng.integers(1, 29, (B, 160)), dtype=torch.int32,
+                                     device=device),
+           "label_lens": torch.full((B,), 160, dtype=torch.int32, device=device)}
+    torch.manual_seed(0)
+    trainer = Trainer(LOSSES["asr"], QuartzNet(), TrainerConfig(optimizer=optimizer_config(1e-3)),
+                      device)
+    out["asr", False] = step_timing(
+        torch, trainer, asr, f"TalkNet 2 QuartzNet 5x5 ASR train step f32 (TF32 off), dropout "
+        f"on: batch {B} x {T_MEL} frames, 160 labels", card, B * T_MEL)
+    del trainer
+
+    weights = {}
+    for i, (kind, cls) in enumerate(HEADS.items()):
+        weights[kind] = random_init_(cls(TalkNet2Config()).to(device), 50 + i, device).state_dict()
+    with torch.no_grad():  # every duration exactly 6 frames: 768 frames an utterance
+        weights["duration"]["backbone.out.weight"].zero_()
+        weights["duration"]["backbone.out.bias"].fill_(6.0)
+    gen = random_init_(Generator(HiFiGANConfig.v1()).to(device).eval(), 4, device)
+    text = torch.as_tensor(rng.integers(1, 148, (8, T_TEXT)), dtype=torch.int32, device=device)
+    lens = torch.full((8,), T_TEXT, dtype=torch.int32, device=device)
+    for amp in (False, True):
+        dtype = torch.bfloat16 if amp else None
+        heads = []
+        for kind, cls in HEADS.items():
+            m = cls(TalkNet2Config(dtype=dtype)).to(device)
+            m.load_state_dict(weights[kind])
+            heads.append(m.eval())
+
+        def run():
+            mel, n, _ = synth(heads, text, lens, 1024)
+            return n, vocode(gen, mel[:, :-(-int(n.max()) // 128) * 128], dtype)
+
+        wall, walls, _, (n, audio) = timed_calls(torch, run, 3)
+        frames = int(n.sum())
+        if frames != 8 * T_TEXT * 6 or not torch.isfinite(audio).all():
+            raise RuntimeError(f"TalkNet 2 → wav bench: {frames} frames, finite "
+                               f"{bool(torch.isfinite(audio).all())}")
+        audio_s = frames * HOP / SR
+        mode = "bf16 (--amp)" if amp else "f32 (TF32 off)"
+        log(f"talknet2wav {mode}: full-width heads + HiFi-GAN v1, batch 8 x {T_TEXT} tokens, "
+            f"max_mel_len 1024, {frames} frames = {audio_s:.3f} s audio: wall {wall:.4f} s (runs "
+            f"{runs(walls)} ms) = RTF {wall / audio_s:.3e}; peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+        log(f"  trace ({mode}): " + trace_summary(torch, run, wall))
+        out["serve", amp] = wall
+    return out
+
+
 def main():
     import torch
 
@@ -2219,6 +2519,7 @@ def main():
         phase_gradtts_serve(torch, device, smi)
         gradtts = phase_gradtts_train_cli(torch, device, smi)
         fs2_b1 = phase_fastspeech2_cli(torch, device, smi)
+        talknet_b1 = phase_talknet_cli(torch, device, smi)
         # launches per step on the training paths (B1 and B2: the GAN step,
         # f32 and bf16; MAS: the FastPitch step, and the Grad-TTS step's
         # checked equal); serving's and dataset prep's B1 counts are checked
@@ -2235,7 +2536,8 @@ def main():
             f"{train_bf16['b2']}; MAS launches: FastPitch training f32 "
             f"{fastpitch['f32']['mas']}, bf16 {fastpitch['bf16']['mas']}, Grad-TTS training "
             f"f32 {gradtts['f32']['mas']}, bf16 {gradtts['bf16']['mas']} (3 steps and 3 "
-            f"validation batches each); B1 launches per DiffWave training batch {diffwave_b1}")
+            f"validation batches each); B1 launches per DiffWave training batch {diffwave_b1}, "
+            f"TalkNet 2 ASR training {talknet_b1} (3 epochs of 16 utterances)")
         phase_reference(torch, device)
         phase_gan_reference(torch, device)
         phase_fastpitch_reference(torch, device)
@@ -2243,6 +2545,7 @@ def main():
         phase_gradtts_reference(torch, device)
         phase_gradtts_train_reference(torch, device)
         phase_fastspeech2_reference(torch, device)
+        phase_talknet_reference(torch, device)
         phase_timing(torch, device, smi)
         phase_train_timing(torch, train["trainer"], smi)
         phase_train_timing(torch, train_bf16["trainer"], smi)
@@ -2254,6 +2557,7 @@ def main():
         for amp in (False, True):
             phase_gradtts_train_timing(torch, device, smi, amp)
             phase_fastspeech2_train_timing(torch, device, smi, amp)
+        phase_talknet_timing(torch, device, smi)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(json.dumps({"kernels": [b1, b2, b2_bf16, mas]}))

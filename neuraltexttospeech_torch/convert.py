@@ -16,6 +16,10 @@ once converted with ``np.asarray``; nothing here imports flax. Mappings:
 - LayerNorm ``scale``/``bias`` → ``weight``/``bias`` (the eps of 1e-3 is
   the module's).
 - Embed ``embedding`` → ``Embedding.weight``.
+- BatchNorm ``scale``/``bias`` → ``weight``/``bias``, and its
+  ``batch_stats`` ``mean``/``var`` → the ``running_mean``/``running_var``
+  buffers (``nn/layers.py::BatchNorm``). A depthwise conv's kernel ``[K, 1,
+  C]`` → ``[C, 1, K]`` like any conv's.
 - ``nn.WeightNorm``: flax keeps the wrapped layer's ``kernel`` as ``v`` and a
   sibling ``WeightNorm_i`` dict with ``"<layer>/kernel/scale"``. It is folded
   at load into ``w = v · rsqrt(Σ v² + 1e-12) · scale``, the sum over every
@@ -43,7 +47,8 @@ import torch
 
 __all__ = ["fastpitch_from_flax", "fastpitch_train_from_flax", "generator_from_flax",
            "fold_weight_norm", "hifigan_train_from_flax", "diffwave_from_flax",
-           "gradtts_from_flax", "fastspeech2_from_flax"]
+           "gradtts_from_flax", "fastspeech2_from_flax", "quartznet_from_flax",
+           "talknet_from_flax"]
 
 _WN_EPS = 1e-12
 _WN = ".parametrizations.weight."
@@ -459,4 +464,74 @@ def fastspeech2_from_flax(params: dict) -> Dict[str, torch.Tensor]:
             _conv(sd, f"postnet.convs.{i}", r, "postnet_net", f"Conv_{i}")
             _layer_norm(sd, f"postnet.norms.{i}", r, "postnet_net", f"LayerNorm_{i}")
     r.finish()
+    return sd
+
+
+def _batch_norm(sd, key, r: _Reader, stats: _Reader, *path):
+    sd[f"{key}.weight"] = _t(r.pop(*path, "BatchNorm_0", "scale"))
+    sd[f"{key}.bias"] = _t(r.pop(*path, "BatchNorm_0", "bias"))
+    sd[f"{key}.running_mean"] = _t(stats.pop(*path, "BatchNorm_0", "mean"))
+    sd[f"{key}.running_var"] = _t(stats.pop(*path, "BatchNorm_0", "var"))
+
+
+def _sep_conv(sd, key, r: _Reader, path, first: int):
+    _conv(sd, f"{key}.depthwise", r, *path, f"Conv_{first}")
+    _conv(sd, f"{key}.pointwise", r, *path, f"Conv_{first + 1}")
+
+
+def _quartznet(sd, prefix: str, r: _Reader, stats: _Reader, *path):
+    """flax ``QuartzNet`` at ``path`` → ``models.talknet.QuartzNet`` keys
+    under ``prefix``: its convs are ``Conv_0..5`` (initial depthwise and
+    pointwise, penultimate depthwise and pointwise, final, output) and its
+    BatchNorms ``_BN_0..2``; a block's are ``Conv_0`` and ``_BN_0`` (the
+    residual), then ``Conv_{2i+1}``, ``Conv_{2i+2}`` and ``_BN_{i+1}``."""
+    _sep_conv(sd, f"{prefix}initial", r, path, 0)
+    _batch_norm(sd, f"{prefix}initial_bn", r, stats, *path, "_BN_0")
+    for j in range(r.count(*path, prefix="QuartzNetBlock")):
+        blk, bkey = (*path, f"QuartzNetBlock_{j}"), f"{prefix}blocks.{j}"
+        _conv(sd, f"{bkey}.res_conv", r, *blk, "Conv_0")
+        _batch_norm(sd, f"{bkey}.res_bn", r, stats, *blk, "_BN_0")
+        for i in range(r.count(*blk, prefix="_BN") - 1):
+            _sep_conv(sd, f"{bkey}.convs.{i}", r, blk, 2 * i + 1)
+            _batch_norm(sd, f"{bkey}.bns.{i}", r, stats, *blk, f"_BN_{i + 1}")
+    _sep_conv(sd, f"{prefix}penultimate", r, path, 2)
+    _batch_norm(sd, f"{prefix}penultimate_bn", r, stats, *path, "_BN_1")
+    _conv(sd, f"{prefix}final_conv", r, *path, "Conv_4")
+    _batch_norm(sd, f"{prefix}final_bn", r, stats, *path, "_BN_2")
+    _conv(sd, f"{prefix}out", r, *path, "Conv_5")
+
+
+def _readers(variables):
+    tree = _plain(variables)
+    return _Reader(tree["params"]), _Reader(tree["batch_stats"])
+
+
+def quartznet_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
+    """flax ``QuartzNet`` variables ``{"params", "batch_stats"}`` →
+    ``models.talknet.QuartzNet`` state dict (BatchNorm buffers included).
+    Raises on any leaf of either tree it does not consume."""
+    r, stats = _readers(variables)
+    sd: Dict[str, torch.Tensor] = {}
+    _quartznet(sd, "", r, stats)
+    r.finish()
+    stats.finish()
+    return sd
+
+
+def talknet_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
+    """flax TalkNet 2 head variables ``{"params", "batch_stats"}`` (a
+    ``GraphemeDuration``, ``PitchPredictor`` or ``SpectrogramModel``, told
+    apart by their trees) → the port head's state dict. Raises on any leaf
+    of either tree it does not consume."""
+    r, stats = _readers(variables)
+    sd: Dict[str, torch.Tensor] = {}
+    if "Embed_0" in r.tree:  # GraphemeDuration
+        sd["embed.weight"] = _t(r.pop("Embed_0", "embedding"))
+    else:  # PitchPredictor, SpectrogramModel
+        sd["embed.embed.weight"] = _t(r.pop("GaussianEmbedding_0", "Embed_0", "embedding"))
+        if "Conv_0" in r.tree:  # SpectrogramModel's pitch conv
+            _conv(sd, "pitch_conv", r, "Conv_0")
+    _quartznet(sd, "backbone.", r, stats, "QuartzNet_0")
+    r.finish()
+    stats.finish()
     return sd

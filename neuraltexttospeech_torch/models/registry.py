@@ -5,7 +5,13 @@ over the port's config classes, with its ``--override`` parser
 (:func:`apply_overrides`). A port checkpoint is a directory that
 holds ``model.pt`` (a ``torch.save``d state dict) and ``model_config.json``
 (``{"model": name, "config": {...}, "frontend": {...}}``, the same file the
-JAX training CLIs write).
+JAX training CLIs write). A config's ``dtype`` is a run-time choice (the
+CLIs' ``--amp``) and is neither written nor read, as in the JAX registry.
+
+``"QuartzNet"`` builds the ASR (29 outputs, JAX's ``get_model`` default);
+``"TalkNet2"`` names the config that the three TalkNet 2 heads share, so
+it has no model class: a head's checkpoint is loaded with its class
+(``load_checkpoint(..., model_cls=)``).
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from .fastpitch import FastPitch, FastPitchConfig
 from .fastspeech2 import FastSpeech2, FastSpeech2Config
 from .gradtts import GradTTS, GradTTSConfig
 from .hifigan import Generator, HiFiGANConfig
+from .talknet import QuartzNet, QuartzNetConfig, TalkNet2Config
 
 __all__ = ["CONFIG_REGISTRY", "MODEL_REGISTRY", "config_to_dict", "config_from_dict",
            "find_model_config", "load_model_config", "load_frontend_config",
@@ -29,19 +36,22 @@ __all__ = ["CONFIG_REGISTRY", "MODEL_REGISTRY", "config_to_dict", "config_from_d
 
 MODEL_REGISTRY: Dict[str, type] = {"FastPitch": FastPitch, "HiFiGAN": Generator,
                                    "DiffWave": DiffWave, "GradTTS": GradTTS,
-                                   "FastSpeech2": FastSpeech2}
+                                   "FastSpeech2": FastSpeech2, "QuartzNet": QuartzNet}
 CONFIG_REGISTRY: Dict[str, type] = {"FastPitch": FastPitchConfig, "HiFiGAN": HiFiGANConfig,
                                     "DiffWave": DiffWaveConfig, "GradTTS": GradTTSConfig,
-                                    "FastSpeech2": FastSpeech2Config}
+                                    "FastSpeech2": FastSpeech2Config,
+                                    "QuartzNet": QuartzNetConfig, "TalkNet2": TalkNet2Config}
 WEIGHTS_FILE = "model.pt"
 
 
 def config_to_dict(config) -> dict:
-    """Dataclass config → JSON-able dict."""
+    """Dataclass config → JSON-able dict (recursing into nested configs,
+    without ``dtype``)."""
 
     def conv(v):
         if dataclasses.is_dataclass(v) and not isinstance(v, type):
-            return {f.name: conv(getattr(v, f.name)) for f in dataclasses.fields(v)}
+            return {f.name: conv(getattr(v, f.name)) for f in dataclasses.fields(v)
+                    if f.name != "dtype"}
         if isinstance(v, (tuple, list)):
             return [conv(x) for x in v]
         return v
@@ -56,11 +66,18 @@ def _tuplify(v):
 
 
 def config_from_dict(config_cls: type, data: dict):
-    """Rebuild a config dataclass (lists → tuples). Keys the class does not
-    have, such as the JAX configs' ``dtype`` or TPU-only switches, are
-    ignored."""
-    kw = {f.name: _tuplify(data[f.name]) for f in dataclasses.fields(config_cls)
-          if f.name in data}
+    """Rebuild a config dataclass: lists → tuples, a nested config from its
+    dict (by the type of the field's default). Keys the class does not
+    have, such as TPU-only switches, and ``dtype`` are ignored."""
+    kw = {}
+    for f in dataclasses.fields(config_cls):
+        if f.name == "dtype" or f.name not in data:
+            continue
+        default = f.default
+        if dataclasses.is_dataclass(default) and not isinstance(default, type):
+            kw[f.name] = config_from_dict(type(default), data[f.name])
+        else:
+            kw[f.name] = _tuplify(data[f.name])
     return config_cls(**kw)
 
 
@@ -135,16 +152,18 @@ def save_checkpoint(output_dir, name: str, config, state_dict,
     return p
 
 
-def load_checkpoint(path, expected_model: str, device: torch.device, config=None):
+def load_checkpoint(path, expected_model: str, device: torch.device, config=None,
+                    model_cls=None):
     """Build the model of a port checkpoint on ``device``, in eval mode.
     ``path`` is the checkpoint dir or its ``model.pt``; ``config`` replaces
-    the checkpoint's own (the weights must fit it). Returns (model, config)."""
+    the checkpoint's own (the weights must fit it); ``model_cls`` replaces
+    the registry's class (a TalkNet 2 head). Returns (model, config)."""
     p = pathlib.Path(path)
     weights = p if p.is_file() else p / WEIGHTS_FILE
     name, saved = load_model_config(weights.parent)
     if name != expected_model:
         raise ValueError(f"{path} holds a {name} checkpoint, expected {expected_model}")
     config = config or saved
-    model = MODEL_REGISTRY[name](config)
+    model = (model_cls or MODEL_REGISTRY[name])(config)
     model.load_state_dict(torch.load(weights, map_location="cpu", weights_only=True))
     return model.to(device).eval(), config

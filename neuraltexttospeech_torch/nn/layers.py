@@ -32,7 +32,7 @@ from torch.nn import functional as F
 from .precision import current, promote
 
 __all__ = ["Conv1d", "ConvTranspose1d", "Conv2d", "ConvTranspose2d", "Linear", "Embedding",
-           "LayerNorm", "GroupNorm", "ConvNorm",
+           "LayerNorm", "GroupNorm", "BatchNorm", "ConvNorm",
            "ConvReLUNorm", "LN_EPS", "same_padding", "dropout", "promoted_conv"]
 
 LN_EPS = 1e-3
@@ -142,6 +142,50 @@ class GroupNorm(nn.GroupNorm):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
+        dtype = current()
+        return y if dtype is None else y.to(dtype)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=m, epsilon=1e-5)`` over axis 1 of a
+    ``[B, C, ...]`` input (flax's feature axis is the last; the port's convs
+    keep channels at axis 1).
+
+    In train mode (``self.training``) it normalises by the batch's statistics
+    over every axis but 1, padded positions included (flax takes no mask
+    here), computed in f32 as ``mean = E[x]`` and the biased ``var = max(E[x²]
+    − E[x]², 0)`` (flax's ``use_fast_variance``), and updates the running
+    buffers without gradient as flax's ``mutable=["batch_stats"]`` does:
+    ``running = m·running + (1 − m)·batch`` (PyTorch's ``momentum`` is
+    ``1 − m``, and its running variance is unbiased). In eval mode it
+    normalises by the buffers. ``y = (x − mean)·(rsqrt(var + eps)·weight) +
+    bias`` in f32, cast to the compute dtype when one is set. ``weight``,
+    ``bias`` and the f32 buffers ``running_mean``/``running_var`` are flax's
+    ``scale``, ``bias``, ``mean`` and ``var``."""
+
+    def __init__(self, num_features: int, momentum: float = 0.99, eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        if self.training:
+            dims = [d for d in range(x.dim()) if d != 1]
+            xf = x.float()
+            mean = xf.mean(dims)
+            var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x - mean.reshape(shape)) * (torch.rsqrt(var + self.eps) * self.weight).reshape(shape)
+        y = y + self.bias.reshape(shape)
         dtype = current()
         return y if dtype is None else y.to(dtype)
 

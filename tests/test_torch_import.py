@@ -34,6 +34,7 @@ def test_package_imports_without_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(len(names), bad)\n"
+        "print(' '.join(names))\n"
         "assert not bad, bad\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_clean_env(),
@@ -41,6 +42,9 @@ def test_package_imports_without_jax():
     assert out.returncode == 0, out.stderr[-2000:]
     n_modules = int(out.stdout.split()[0])
     assert n_modules >= 20  # every submodule was imported
+    for name in ("models.talknet", "data.asr_dataset", "cli.talknet_train",
+                 "cli.talknet_infer"):
+        assert f"neuraltexttospeech_torch.{name}" in out.stdout.split(), name
 
 
 def test_no_forbidden_import_statements():
@@ -76,7 +80,7 @@ def test_chip_smoke_fails_outside_the_repo(tmp_path):
 
 
 @pytest.mark.parametrize("cli", ["fastpitch_infer", "hifigan_infer", "diffwave_infer",
-                                 "gradtts_infer", "fastspeech2_infer"])
+                                 "gradtts_infer", "fastspeech2_infer", "talknet_infer"])
 def test_cli_without_device_raises_when_no_gpu(cli, tmp_path):
     import importlib
 
@@ -85,9 +89,11 @@ def test_cli_without_device_raises_when_no_gpu(cli, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")
     mod = importlib.import_module(f"neuraltexttospeech_torch.cli.{cli}")
+    checkpoints = (["--duration-checkpoint", str(tmp_path), "--pitch-checkpoint", str(tmp_path),
+                    "--spectrogram-checkpoint", str(tmp_path)] if cli == "talknet_infer"
+                   else ["--checkpoint", str(tmp_path)])
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        mod.main(["--checkpoint", str(tmp_path), "-i", str(tmp_path / "in.txt"),
-                  "-o", str(tmp_path / "out")])
+        mod.main(checkpoints + ["-i", str(tmp_path / "in.txt"), "-o", str(tmp_path / "out")])
 
 
 def test_resolve_device_policy():
@@ -105,7 +111,7 @@ def test_resolve_device_policy():
 
 @pytest.mark.parametrize("cli", ["diffwave_train", "hifigan_train", "fastpitch_train",
                                  "gradtts_train", "fastspeech2_train",
-                                 "fastspeech2_prepare_dataset"])
+                                 "fastspeech2_prepare_dataset", "talknet_train"])
 def test_trainer_cli_without_device_raises_when_no_gpu(cli, tmp_path):
     import importlib
 
@@ -118,6 +124,8 @@ def test_trainer_cli_without_device_raises_when_no_gpu(cli, tmp_path):
             "fastspeech2_prepare_dataset": ["--raw-path", str(tmp_path / "raw"),
                                             "--textgrid-path", str(tmp_path / "tg"),
                                             "--out-dir", str(tmp_path / "out")],
+            "talknet_train": ["--model", "asr", "-o", str(tmp_path / "out"), "-d",
+                              str(tmp_path / "list.txt")],
             }.get(cli, ["-o", str(tmp_path / "out"), "--training-files",
                         str(tmp_path / "list.txt")])
     if cli in ("fastpitch_train", "gradtts_train"):

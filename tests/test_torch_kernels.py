@@ -607,6 +607,41 @@ def test_vocoder_dataset_on_the_card_runs_b1_twice_a_batch(cuda_device, tmp_path
             np.testing.assert_allclose(y[k].cpu().numpy(), x[k].numpy(), **TOL)
 
 
+@pytest.mark.gpu
+def test_asr_dataset_on_the_card_runs_b1_once_an_utterance(cuda_device, tmp_path):
+    """``ASRDataset(device=cuda)``, the TalkNet 2 ASR trainer's: each
+    utterance's log-mel through B1 on the card (one launch each), at the
+    per-utterance shapes of 1.5–3.5 s wavs, within B1's log-mel budget of
+    its twin on the same frames and of the host's plain path; padding,
+    labels and transcripts as the host's batches."""
+    from neuraltexttospeech_torch.data.asr_dataset import ASRDataset
+    from neuraltexttospeech_torch.data.filelist import load_wav, save_wav
+
+    rng = np.random.default_rng(0)
+    lines = []
+    for i, seconds in enumerate((1.5, 2.2, 3.5, 2.9)):
+        path = tmp_path / f"utt{i}.wav"
+        save_wav(str(path), rng.standard_normal(int(seconds * 22050)) * 0.1, 22050)
+        lines.append(f"{path}|hello number {i}")
+    filelist = tmp_path / "asr.txt"
+    filelist.write_text("\n".join(lines) + "\n")
+    host = list(ASRDataset(str(filelist), "cpu").batches(2, seed=1))
+    mel_kernel.fused_frames_to_mel.launches = 0
+    card = list(ASRDataset(str(filelist), cuda_device).batches(2, seed=1))
+    assert mel_kernel.fused_frames_to_mel.launches == len(lines)
+    for x, y in zip(host, card):
+        assert y["mel"].is_cuda and y["mel"].shape == x["mel"].shape
+        np.testing.assert_allclose(y["mel"].cpu().numpy(), x["mel"].numpy(), **TOL)
+        for k in ("mel_lens", "labels", "label_lens", "texts"):
+            np.testing.assert_array_equal(y[k], x[k])
+    cfg = STFTConfig()
+    for line in lines:
+        audio = torch.as_tensor(load_wav(line.split("|")[0], 22050)[0], device=cuda_device)
+        frames = windowed_frames(audio, 1024, 256, 1024).contiguous()
+        torch.testing.assert_close(mel_kernel.fused_frames_to_mel(frames, cfg),
+                                   mel_kernel.frames_to_mel_reference(frames, cfg), **TOL)
+
+
 def _gradtts_log_prior(device, b=16, t_mel=512, t_text=160, seed=0):
     """Grad-TTS's Gaussian log-prior of random mu and mels, as MAS takes it
     ([B, T_mel, T_text]); the Grad-TTS step's shape by default."""
