@@ -2129,9 +2129,9 @@ def phase_fastspeech2_reference(torch, device):
                                                        for i in range(3)), 2.5e-4)
 
 
-def step_timing(torch, trainer, batch, label, card, frames, kernel=None):
+def step_timing(torch, trainer, batch, label, card, frames, kernel=None, unit="mel frames"):
     """A train step's wall (median of 5 synchronised steps after 2 warm
-    ones), steps/s and mel frames/s, peak memory, then one traced step:
+    ones), steps/s and ``frames`` ``unit``/s, peak memory, then one traced step:
     busy time, idle share, device events, host launches, the top kernels and
     ``kernel``'s time and share."""
     for _ in range(2):
@@ -2140,7 +2140,7 @@ def step_timing(torch, trainer, batch, label, card, frames, kernel=None):
     if not all(np.isfinite(float(v)) for v in metrics.values()):
         raise RuntimeError(f"non-finite {label} metrics: {metrics}")
     log(f"{label}: wall {wall * 1e3:.1f} ms (runs {runs(walls)}; host done issuing after "
-        f"{runs(hosts)}) = {1 / wall:.2f} steps/s, {frames / wall:.0f} mel frames/s; peak "
+        f"{runs(hosts)}) = {1 / wall:.2f} steps/s, {frames / wall:.0f} {unit}/s; peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
     summary = trace_summary(torch, lambda: trainer.train_step(batch), wall)
     extra = ""
@@ -2430,9 +2430,11 @@ def phase_talknet_timing(torch, device, card):
                           device)
         mode = "bf16 (--amp)" if amp else "f32 (TF32 off)"
         shape = f"{B} x {T_TEXT} tokens" + ("" if kind == "duration" else f" x {T_MEL} frames")
+        per_token = kind == "duration"  # the duration head sees no mel frames
         out[kind, amp] = step_timing(
             torch, trainer, batch, f"TalkNet 2 {kind} train step {mode}, full width, dropout "
-            f"on: batch {shape}", card, B * T_MEL)
+            f"on: batch {shape}", card, B * (T_TEXT if per_token else T_MEL),
+            unit="tokens" if per_token else "mel frames")
         del trainer, model
     rng = np.random.default_rng(35)
     asr = {"mel": torch.as_tensor(rng.standard_normal((B, T_MEL, 80)).astype(np.float32),

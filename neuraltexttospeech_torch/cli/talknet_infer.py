@@ -39,6 +39,7 @@ from ..models.registry import (WEIGHTS_FILE, load_checkpoint, load_frontend_conf
                                load_model_config)
 from ..models.talknet import GraphemeDuration, PitchPredictor, SpectrogramModel
 from ..text.processing import TextProcessing
+from ..train.checkpoint import checkpoint_steps
 from ..utils.device import resolve_device
 from ..utils.masking import mask_from_lens
 from ..utils.serving import round_up, serving_sharding, text_batches
@@ -76,11 +77,10 @@ def checkpoint_dir(path) -> pathlib.Path:
     if (p / WEIGHTS_FILE).exists():
         return p
     root = p if p.name == "checkpoints" else p / "checkpoints"
-    steps = sorted((int(d.name), d) for d in root.glob("*")
-                   if d.name.isdigit() and (d / WEIGHTS_FILE).exists())
+    steps = checkpoint_steps(root)
     if not steps:
         raise FileNotFoundError(f"no TalkNet 2 checkpoint under {path}")
-    return steps[-1][1]
+    return root / str(steps[-1])
 
 
 def load_heads(duration, pitch, spectrogram, device: torch.device, amp: bool = False):

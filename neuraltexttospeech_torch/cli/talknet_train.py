@@ -42,7 +42,7 @@ import time
 
 import torch
 
-from ..data.asr_dataset import ASRDataset
+from ..data.asr_dataset import VOCAB, ASRDataset
 from ..models.gradtts import generate_path
 from ..models.registry import apply_overrides, save_model_config
 from ..models.talknet import (GraphemeDuration, PitchPredictor, QuartzNet, QuartzNetConfig,
@@ -152,7 +152,7 @@ def main(argv=None):
     if args.model == "asr":
         ds = ASRDataset(args.preprocessed_path, device)
         config = apply_overrides(QuartzNetConfig(block_repeat=1, module_repeat=5), args.override)
-        model, name, frontend = QuartzNet(config, len(ds.vocab)), "QuartzNet", None
+        model, name, frontend = QuartzNet(config, len(VOCAB)), "QuartzNet", None
     else:
         ds = FS2Dataset(args.preprocessed_path)
         config = apply_overrides(TalkNet2Config(dtype=torch.bfloat16 if args.amp else None),
@@ -195,7 +195,7 @@ def main(argv=None):
                     logp = model(batch["mel"])
                 model.train()
                 for ids, ref in zip(greedy_decode(logp, batch["mel_lens"] // 2), batch["texts"]):
-                    hyps.append(ds.vocab.decode(ids))
+                    hyps.append(VOCAB.decode(ids))
                     refs.append(ref)
 
         trainer.extra_state["position"] = (epoch, skip_now)

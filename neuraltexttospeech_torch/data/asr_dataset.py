@@ -31,14 +31,14 @@ from .filelist import load_filepaths_and_text, load_wav
 
 __all__ = ["ASRDataset"]
 
+VOCAB = StringMap()
+STFT = STFTConfig()
+
 
 class ASRDataset:
-    def __init__(self, filelist, device=None, vocab: Optional[StringMap] = None,
-                 stft: STFTConfig = STFTConfig()):
+    def __init__(self, filelist, device=None):
         self.entries = load_filepaths_and_text(filelist)
         self.device = torch.device("cpu" if device is None else device)
-        self.vocab = vocab or StringMap()
-        self.stft = stft
 
     def __len__(self):
         return len(self.entries)
@@ -46,9 +46,9 @@ class ASRDataset:
     def item(self, i: int):
         """(log-mel [T, n_mel] on the device, labels int32, transcript)."""
         wav, text = self.entries[i][0], self.entries[i][-1]
-        audio, _ = load_wav(wav, self.stft.sampling_rate)
-        mel = mel_spectrogram(torch.as_tensor(audio, device=self.device), self.stft)
-        return mel, np.asarray(self.vocab.encode(text), np.int32), text
+        audio, _ = load_wav(wav, STFT.sampling_rate)
+        mel = mel_spectrogram(torch.as_tensor(audio, device=self.device), STFT)
+        return mel, np.asarray(VOCAB.encode(text), np.int32), text
 
     def batches(self, batch_size: int, seed: int = 0, max_batches: Optional[int] = None,
                 skip: int = 0) -> Iterator[Dict]:

@@ -23,10 +23,10 @@ Activations are ``[B, T, C]`` at module boundaries; the backbone runs in
 
 Precision follows each module's own config, as flax's ``dtype=`` does, not
 the ambient compute dtype of ``nn/precision.py``: a head's embedding and
-pitch conv compute in ``TalkNet2Config.dtype``, and the backbone in
-``QuartzNetConfig.dtype``, which is None (f32) in every CLI of the JAX
-package: under ``--amp`` only the embeddings and the pitch conv are bf16, and
-the Gaussian expansion's f32 weights lift the embedding back to f32.
+pitch conv compute in ``TalkNet2Config.dtype``, and the backbone always in
+f32, as no CLI of the JAX package sets its ``QuartzNetConfig.dtype``: under
+``--amp`` only the embeddings and the pitch conv are bf16, and the Gaussian
+expansion's f32 weights lift the embedding back to f32.
 
 Dropout runs only when a call is given a ``torch.Generator``; BatchNorm
 takes batch statistics and updates its buffers in train mode
@@ -56,8 +56,7 @@ ASR_VOCAB = 29  # len(StringMap()): blank, space, a-z, apostrophe
 
 @dataclasses.dataclass(frozen=True)
 class QuartzNetConfig:
-    """Model = (5 blocks × block_repeat) × module_repeat (5x5 / 10x5 / 15x5).
-    ``dtype`` is the backbone's compute dtype (None: f32)."""
+    """Model = (5 blocks × block_repeat) × module_repeat (5x5 / 10x5 / 15x5)."""
 
     block_repeat: int = 1
     module_repeat: int = 5
@@ -69,7 +68,6 @@ class QuartzNetConfig:
     penultimate_filters: int = 512
     penultimate_kernel: int = 87
     final_filters: int = 1024
-    dtype: Optional[torch.dtype] = None
 
 
 class SepConv(nn.Module):
@@ -139,7 +137,7 @@ class QuartzNet(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        with compute_dtype(self.config.dtype or torch.float32):
+        with compute_dtype(torch.float32):
             x = x.transpose(1, 2)
             x = torch.relu(self.initial_bn(self.initial(x)))
             x = dropout(x, self.p_dropout, generator)
@@ -217,7 +215,7 @@ class StringMap:
 @dataclasses.dataclass(frozen=True)
 class TalkNet2Config:
     """The heads' config; ``dtype`` is the embeddings' and the pitch conv's
-    compute dtype (None: f32), ``backbone.dtype`` the backbone's."""
+    compute dtype (None: f32); the backbone computes in f32."""
 
     n_symbols: int = 148
     emb_dim: int = 256

@@ -15,15 +15,23 @@ from __future__ import annotations
 import os
 import pathlib
 import shutil
-from typing import Any, Optional
+from typing import Any, List, Optional
 
 import torch
 
 from ..models.registry import save_checkpoint
 
-__all__ = ["Checkpointer"]
+__all__ = ["Checkpointer", "checkpoint_steps"]
 
 STATE_FILE = "train_state.pt"
+
+
+def checkpoint_steps(directory) -> List[int]:
+    """The steps of the checkpoints under ``directory``, oldest first (none
+    when it does not exist)."""
+    d = pathlib.Path(directory)
+    return sorted(int(p.name) for p in d.iterdir()
+                  if p.is_dir() and p.name.isdigit()) if d.is_dir() else []
 
 
 class Checkpointer:
@@ -34,8 +42,7 @@ class Checkpointer:
         self.save_interval_steps = save_interval_steps
 
     def all_steps(self):
-        return sorted(int(p.name) for p in self.directory.iterdir()
-                      if p.is_dir() and p.name.isdigit())
+        return checkpoint_steps(self.directory)
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
