@@ -57,7 +57,12 @@ Phases, each raising on failure:
    (once an utterance an epoch, counted, and held against its twin); the
    duration, pitch and spectrogram heads on FastSpeech 2's prepared corpus,
    f32 and ``--amp``, 2 steps then ``--resume``; ``talknet_infer`` of the 16
-   sentences with the v1 vocoder, f32 and ``--amp``.
+   sentences with the v1 vocoder, f32 and ``--amp``. Tacotron 2: the same
+   16 wavs through ``tacotron2_prepare_dataset`` on the card (B1 once a wav,
+   counted, each log-mel held against the host's and B1 against its twin),
+   ``tacotron2_train`` at ``Tacotron2Config()`` (batch 16, 2 steps then
+   ``--resume`` for a 3rd, f32 and ``--amp``), ``tacotron2_infer`` of the 16
+   sentences (1000 decoder steps) with the v1 vocoder, f32 and ``--amp``.
 7. Reference checks: at a small width the card's text → wav and
    copy-synthesis agree with the same weights on the CPU, and so do one
    GAN step of the small (``TINY``) generator with the full MPD and MSD,
@@ -68,7 +73,10 @@ Phases, each raising on failure:
    small QuartzNet ASR and of each small TalkNet 2 head (their BatchNorm
    buffers too), each in f32 and in bf16 (not the ASR, whose ``--amp`` is
    ignored) (bf16 by the yardstick of
-   tests/test_torch_bf16.py with the CPU's f32 run in the place of JAX's).
+   tests/test_torch_bf16.py with the CPU's f32 run in the place of JAX's);
+   a small Tacotron 2's forwards (the card's cuDNN BiLSTM against the CPU's
+   loop), one train step (its BatchNorm buffers, and bf16) and ``infer`` in
+   both forms.
 8. Timing: text → wav at the ``bench.py`` shape (batch 8 × 128 tokens,
    1024 mel frames), f32 and bf16, in wall seconds per audio second; the v1
    GAN step in ms and samples/s, the FastPitch train step at the
@@ -82,7 +90,10 @@ Phases, each raising on failure:
    count; TalkNet 2 at full width: the spectrogram head's step at 16 × 128
    tokens × 768 frames (f32 and ``--amp``), the duration and pitch heads'
    steps, the ASR step at 16 × 768 frames with 160 labels, and text → wav
-   through the three heads and v1 at 8 × 128 tokens (f32 and ``--amp``).
+   through the three heads and v1 at 8 × 128 tokens (f32 and ``--amp``);
+   Tacotron 2 at full width: the train step at 64 × 128 tokens × 512 frames
+   and text → wav through 1000 decoder steps and v1 at 8 × 128 tokens, each
+   f32 and ``--amp``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -1093,7 +1104,8 @@ def device_breakdown(torch, fn, top=6):
     def on_device(e):  # GPU user annotations are ranges, not kernels
         return e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
 
-    events = [e for e in prof.key_averages() if on_device(e)]
+    averages = prof.key_averages()  # seconds for a trace of ~100k launches: once
+    events = [e for e in averages if on_device(e)]
     kernels = [(e.self_device_time_total / 1e3, e.key) for e in events]
     busy, end = 0.0, float("-inf")
     for start, stop in sorted((e.time_range.start, e.time_range.end)
@@ -1104,10 +1116,10 @@ def device_breakdown(torch, fn, top=6):
     device_breakdown.kernel_sum = sum(ms for ms, _ in kernels)
     device_breakdown.launches = sum(e.count for e in events)
     device_breakdown.counts = {e.key: e.count for e in events}
-    device_breakdown.ops = {e.key: e.count for e in prof.key_averages()
+    device_breakdown.ops = {e.key: e.count for e in averages
                             if e.device_type != DeviceType.CUDA and e.key.startswith("aten::")}
     device_breakdown.runtime = {  # host side: CUDA runtime calls, (count, ms)
-        e.key: (e.count, e.self_cpu_time_total / 1e3) for e in prof.key_averages()
+        e.key: (e.count, e.self_cpu_time_total / 1e3) for e in averages
         if e.device_type != DeviceType.CUDA and e.key.startswith(("cuda", "cu"))}
     return busy / 1e3, sorted(kernels, reverse=True)[:top]
 
@@ -2205,6 +2217,24 @@ def phase_fastspeech2_train_timing(torch, device, card, amp=False):
 TN_ADAM = dict(learning_rate=1e-3, beta1=0.9, beta2=0.999, eps=1e-8, grad_clip_norm=1.0)
 
 
+def b1_against_twin(torch, device, wav_paths):
+    """B1 against its twin on the card on each wav's frames (atol 1e-3, rtol
+    1e-4): (max|diff|, frames)."""
+    from neuraltexttospeech_torch.audio.stft import STFTConfig, windowed_frames
+    from neuraltexttospeech_torch.data.filelist import load_wav
+    from neuraltexttospeech_torch.ops import mel_kernel
+
+    cfg, d_twin, n_frames = STFTConfig(), 0.0, 0
+    for path in wav_paths:
+        audio = torch.as_tensor(load_wav(path, SR)[0], device=device)
+        frames = windowed_frames(audio, 1024, HOP, 1024).contiguous()
+        got, twin = (mel_kernel.fused_frames_to_mel(frames, cfg),
+                     mel_kernel.frames_to_mel_reference(frames, cfg))
+        torch.testing.assert_close(got, twin, atol=1e-3, rtol=1e-4)
+        d_twin, n_frames = max(d_twin, (got - twin).abs().max().item()), n_frames + len(frames)
+    return d_twin, n_frames
+
+
 def phase_talknet_cli(torch, device, card):
     """TalkNet 2 through its CLIs at full width. The ASR (QuartzNet 5×5) on
     the FastPitch phase's 16 synthetic wavs with their ``SENTENCES``
@@ -2219,10 +2249,8 @@ def phase_talknet_cli(torch, device, card):
     ``n · 256`` samples. Returns B1's ASR launches."""
     from scipy.io import wavfile
 
-    from neuraltexttospeech_torch.audio.stft import STFTConfig, windowed_frames
     from neuraltexttospeech_torch.cli import talknet_infer, talknet_train
     from neuraltexttospeech_torch.data.asr_dataset import ASRDataset
-    from neuraltexttospeech_torch.data.filelist import load_wav
     from neuraltexttospeech_torch.models.registry import load_checkpoint, save_checkpoint
     from neuraltexttospeech_torch.models.talknet import GraphemeDuration
     from neuraltexttospeech_torch.ops import gouter_kernel, mas_kernel, mel_kernel
@@ -2266,14 +2294,7 @@ def phase_talknet_cli(torch, device, card):
         + " ".join(f"{k}={v:.4f}" for k, v in sorted(resumed["metrics"].items())) + f" [{card}]")
     # B1 at the ASR dataset's call sites: against its twin on each
     # utterance's frames, and a card batch against the host's
-    cfg, d_twin, n_frames = STFTConfig(), 0.0, 0
-    for line in lines:
-        audio = torch.as_tensor(load_wav(line.split("|")[0], SR)[0], device=device)
-        frames = windowed_frames(audio, 1024, HOP, 1024).contiguous()
-        got, twin = (mel_kernel.fused_frames_to_mel(frames, cfg),
-                     mel_kernel.frames_to_mel_reference(frames, cfg))
-        torch.testing.assert_close(got, twin, atol=1e-3, rtol=1e-4)
-        d_twin, n_frames = max(d_twin, (got - twin).abs().max().item()), n_frames + len(frames)
+    d_twin, n_frames = b1_against_twin(torch, device, [l.split("|")[0] for l in lines])
     host = next(ASRDataset(str(filelist), "cpu").batches(16, seed=1234))
     on_card = next(ASRDataset(str(filelist), device).batches(16, seed=1234))
     np.testing.assert_allclose(on_card["mel"].cpu().numpy(), host["mel"].numpy(), atol=1e-3,
@@ -2484,8 +2505,298 @@ def phase_talknet_timing(torch, device, card):
             f"{runs(walls)} ms) = RTF {wall / audio_s:.3e}; peak "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
         log(f"  trace ({mode}): " + trace_summary(torch, run, wall))
+        log(f"  host ({mode}): " + host_summary())
         out["serve", amp] = wall
     return out
+
+
+def host_summary(top=5):
+    """From the last :func:`device_breakdown`: the host's kernel launches,
+    copy kernels, casts and ``cudaFuncGetAttributes`` calls, and its CUDA
+    runtime calls that took most time."""
+    launches, copies, casts, attrs = launch_counts()
+    runtime = sorted(device_breakdown.runtime.items(), key=lambda kv: -kv[1][1])[:top]
+    return (f"{launches} kernel launches, {copies} copy kernels, {casts} casts, {attrs} "
+            f"cudaFuncGetAttributes; runtime calls "
+            + "; ".join(f"{name} x{count} {ms:.1f} ms" for name, (count, ms) in runtime))
+
+
+T2_SMALL = dict(symbols_embedding_dim=64, encoder_embedding_dim=64, decoder_rnn_dim=128,
+                attention_rnn_dim=128, attention_dim=32, attention_location_n_filters=8,
+                prenet_dim=32, postnet_embedding_dim=64, max_decoder_steps=64)
+# AdamW of the Tacotron 2 CLI at eps 1e-5 for the card-vs-CPU step: the
+# convs' biases before the BatchNorms have gradients that are zero but for
+# rounding, which Adam at eps 1e-8 turns into steps of up to lr either way
+T2_ADAMW = dict(optimizer="adamw", learning_rate=1e-3, beta1=0.9, beta2=0.999, eps=1e-5,
+                weight_decay=1e-6, grad_clip_norm=1.0)
+
+
+def tacotron2_batch(rng, batch, t_text, t_mel, n_symbols, text_lens, mel_lens):
+    """Random tokens and N(0, 1) mels, zero past each length (numpy)."""
+    text = rng.integers(1, n_symbols, (batch, t_text)).astype(np.int32)
+    text[np.arange(t_text)[None] >= np.asarray(text_lens)[:, None]] = 0
+    mel = rng.standard_normal((batch, t_mel, 80)).astype(np.float32)
+    mel[np.arange(t_mel)[None] >= np.asarray(mel_lens)[:, None]] = 0.0
+    return {"text": text, "input_lens": np.asarray(text_lens, np.int32), "mel": mel,
+            "mel_lens": np.asarray(mel_lens, np.int32)}
+
+
+def phase_tacotron2_cli(torch, device, card):
+    """Tacotron 2 through its CLIs at full width: the FastPitch phase's 16
+    synthetic wavs through ``tacotron2_prepare_dataset`` on the card (B1 once
+    a wav, counted; each cached log-mel held against the host's plain path,
+    and B1 against its twin on each wav's frames); ``tacotron2_train`` at
+    ``Tacotron2Config()``, batch 16, 2 steps then ``--resume`` for a 3rd, f32
+    and ``--amp`` (no kernel launched: the mels are cached); then
+    ``tacotron2_infer`` of the 16 sentences with the serving phase's HiFi-GAN
+    v1, f32 and ``--amp``, 1000 decoder steps: finite wavs of ``n · 256``
+    samples. Returns B1's launches in prep."""
+    from scipy.io import wavfile
+
+    from neuraltexttospeech_torch.audio.stft import STFT
+    from neuraltexttospeech_torch.cli import (tacotron2_infer, tacotron2_prepare_dataset,
+                                              tacotron2_train)
+    from neuraltexttospeech_torch.data.filelist import load_wav
+    from neuraltexttospeech_torch.ops import gouter_kernel, mas_kernel, mel_kernel
+
+    counted = (mel_kernel.fused_frames_to_mel, gouter_kernel.gouter_tap_dots_kernel,
+               mas_kernel.maximum_path)
+    filelist, feats = WORK / "fp_train.txt", WORK / "t2_feats"
+    wavs = [line.split("|")[0] for line in filelist.read_text().splitlines()]
+    mel_kernel.fused_frames_to_mel.launches = 0
+    t0 = time.perf_counter()
+    tacotron2_prepare_dataset.main(["-d", str(feats), "--training-files", str(filelist)])
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    b1_prep = mel_kernel.fused_frames_to_mel.launches
+    if b1_prep != len(wavs):
+        raise RuntimeError(f"Tacotron 2 prep launched B1 {b1_prep} times for {len(wavs)} wavs")
+    host, d_host = STFT(device="cpu"), 0.0
+    for path in wavs:
+        saved = np.load(feats / pathlib.Path(path).name.replace(".wav", "_mel.npy"))
+        want = host.mel_spectrogram(load_wav(path, SR)[0]).numpy()
+        np.testing.assert_allclose(saved, want, atol=1e-3, rtol=1e-4, err_msg=path)
+        d_host = max(d_host, float(np.abs(saved - want).max()))
+    d_twin, n_frames = b1_against_twin(torch, device, wavs)
+    log(f"Tacotron 2 prep path: {len(wavs)} wavs ({n_frames} frames) in {prep_s:.2f} s; B1 "
+        f"launches {b1_prep}; cached log-mels vs the host's plain path max|diff| {d_host:.3e}, "
+        f"B1 vs its twin on the card {d_twin:.3e} (atol 1e-3, rtol 1e-4) [{card}]")
+
+    for tag, flags in (("f32", []), ("bf16", ["--amp"])):
+        argv = ["-o", str(WORK / f"t2_train_{tag}"), "-d", str(feats), "--training-files",
+                str(filelist), "-bs", "16", "--steps-per-epoch", "1"] + flags
+        for fn in counted:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        first = tacotron2_train.main(argv + ["--epochs", "2"])
+        resumed = tacotron2_train.main(argv + ["--epochs", "3", "--resume"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        trainer, dtype = resumed["trainer"], torch.bfloat16 if flags else None
+        counts = tuple(fn.launches for fn in counted)
+        if (first["steps"], resumed["steps"], trainer.step, resumed["config"].dtype) != (
+                2, 1, 3, dtype) or any(counts):
+            raise RuntimeError(f"Tacotron 2 trainer ({tag}): {first['steps']} + "
+                               f"{resumed['steps']} steps, step {trainer.step}, B1/B2/MAS "
+                               f"launches {counts}")
+        for run in (first, resumed):
+            if not run["metrics"] or not all(np.isfinite(v) for v in run["metrics"].values()):
+                raise RuntimeError(f"non-finite or missing Tacotron 2 metrics ({tag}): {run}")
+        state = trainer.model.state_dict()
+        if any(v.dtype != torch.float32 or not torch.isfinite(v).all() for v in state.values()):
+            raise RuntimeError(f"Tacotron 2 ({tag}): parameters or buffers not finite f32")
+        n_params = sum(p.numel() for p in trainer.model.parameters())
+        log(f"Tacotron 2 training path ({tag}): Tacotron2Config() ({n_params / 1e6:.2f}M "
+            f"parameters), batch 16, 3 steps (2, then --resume 1) in {wall:.1f} s with set-up "
+            f"and checkpoints; B1/B2/MAS launches {counts}; last losses "
+            + " ".join(f"{k}={v:.4f}" for k, v in sorted(resumed["metrics"].items()))
+            + f" [{card}]")
+        del trainer, first, resumed
+
+    for tag, flags in (("f32", []), ("bf16", ["--amp"])):
+        out = WORK / f"t2_wavs_{tag}"
+        t0 = time.perf_counter()
+        tacotron2_infer.main(["--checkpoint", str(WORK / "t2_train_f32"), "--hifigan-checkpoint",
+                              str(WORK / "gt_serve" / "hifigan"), "-i",
+                              str(WORK / "gt_sentences.txt"), "-o", str(out), "-bs", "8"]
+                             + flags)
+        torch.cuda.synchronize()
+        frames = []
+        for j in range(len(SENTENCES)):
+            mel = np.load(out / f"utt_{j:04d}_mel.npy")
+            sr, audio = wavfile.read(out / f"utt_{j:04d}.wav")
+            if (mel.ndim != 2 or mel.shape[1] != 80 or not 0 < mel.shape[0] <= 1000
+                    or not np.isfinite(mel).all() or sr != SR
+                    or audio.shape != (mel.shape[0] * HOP,) or not np.isfinite(audio).all()):
+                raise RuntimeError(f"tacotron2_infer ({tag}) utterance {j}: mel {mel.shape}, "
+                                   f"audio {audio.shape}")
+            frames.append(mel.shape[0])
+        log(f"Tacotron 2 serving path ({tag}): {len(SENTENCES)} sentences, batch 8, 1000 decoder "
+            f"steps, HiFi-GAN v1: {sum(frames)} frames ({min(frames)}–{max(frames)} an "
+            f"utterance) in {time.perf_counter() - t0:.2f} s (first call, checkpoint loads "
+            f"included); mels and wavs of n · hop samples, finite [{card}]")
+    return b1_prep
+
+
+def phase_tacotron2_reference(torch, device):
+    """A small Tacotron 2 (``T2_SMALL``: widths 32–128, the real kernels 5
+    and 31, 64 decoder steps), card vs CPU from the same weights, dropout
+    off (the two devices' generators draw differently): the eval and
+    train-mode forwards (the card's encoder BiLSTM through cuDNN, the CPU's
+    through the loop) at atol 1e-4 / rtol 1e-4; one train step (AdamW at eps
+    1e-5) at the trainer tolerances, its BatchNorm buffers by
+    :func:`check_buffers`, and its ``--amp`` step by :func:`check_bf16_step`
+    (the bf16 step's buffers by :func:`bf16_yardstick`);
+    ``infer`` in both forms where every row runs to the cap and where every
+    row stops at its first frame: ``mel_lengths`` equal, mels at atol 1e-4."""
+    from neuraltexttospeech_torch.models.tacotron2 import Tacotron2, Tacotron2Config
+    from neuraltexttospeech_torch.models.tacotron2_train import loss_fn
+
+    def make(amp=False):
+        return Tacotron2(Tacotron2Config(**T2_SMALL, dtype=torch.bfloat16 if amp else None))
+
+    torch.manual_seed(61)
+    weights = {k: v.clone() for k, v in make().state_dict().items()}
+    batch = tacotron2_batch(np.random.default_rng(62), 3, 24, 48, 148, [24, 17, 9],
+                            [48, 40, 23])
+    cpu = torch.device("cpu")
+    outs = {}
+    for dev in (device, cpu):
+        m = make().to(dev)
+        m.load_state_dict(weights)
+        t = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        with torch.no_grad():
+            for train in (False, True):
+                out = m.train(train)(t["text"], t["input_lens"], t["mel"], t["mel_lens"])
+                outs[dev.type, train] = [x.cpu() for x in out[:4]]
+    worst = 0.0
+    for train in (False, True):
+        for got, want in zip(outs["cuda", train], outs["cpu", train]):
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+            worst = max(worst, (got - want).abs().max().item())
+    log(f"reference: small Tacotron 2 eval and train forwards card vs CPU max|diff| {worst:.2e} "
+        f"(atol 1e-4, rtol 1e-4)")
+    steps = train_steps_card_and_cpu(
+        torch, make, weights, lambda model, b, generator: loss_fn(model, b, None), T2_ADAMW,
+        batch, device, model_amp=True)
+    label = "small Tacotron 2 train step"
+    check_f32_step(label, steps)
+    check_buffers(label, {k: v for k, v in steps.items() if not k[0]})
+    check_bf16_step(label, *({k: v[i] for k, v in steps.items()} for i in range(3)),
+                    T2_ADAMW["learning_rate"])
+    # bf16: the statistics of bf16 conv outputs, which the card's cuDNN and
+    # the CPU round differently, by the yardstick against the CPU's f32 step
+    buffers = [k for k in weights if "running_" in k]
+    worst = max(bf16_yardstick(f"{label} {k}", *(steps[m][1][k].numpy() for m in (
+        (True, "cuda"), (True, "cpu"), (False, "cpu"))))[0] for k in buffers)
+    log(f"reference: {label}: {len(buffers)} bf16 BatchNorm buffers card vs CPU max|diff| "
+        f"{worst:.2e}, each within the bf16 yardstick")
+
+    for case, bias in (("cap", -50.0), ("first frame", 50.0)):
+        res = {}
+        for dev in (device, cpu):
+            m = make().to(dev)
+            m.load_state_dict(weights)
+            with torch.no_grad():
+                m.cell.gate_layer.bias.fill_(bias)
+                t = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+                for early in (False, True):
+                    out = m.infer(t["text"], t["input_lens"], early_stop=early)
+                    res[dev.type, early] = [x.cpu() for x in out]
+        for early in (False, True):
+            card, host = res["cuda", early], res["cpu", early]
+            if not torch.equal(card[4], host[4]):
+                raise RuntimeError(f"Tacotron 2 infer ({case}, early_stop={early}): mel_lengths "
+                                   f"{card[4].tolist()} on the card, {host[4].tolist()} on the CPU")
+            want_len = 64 if case == "cap" else 1
+            if not (host[4] == want_len).all():
+                raise RuntimeError(f"Tacotron 2 infer ({case}): mel_lengths {host[4].tolist()}")
+            for got, want in zip(card[:4], host[:4]):
+                torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        d = max((a - b).abs().max().item() for e in (False, True)
+                for a, b in zip(res["cuda", e][:4], res["cpu", e][:4]))
+        log(f"reference: small Tacotron 2 infer ({case}), scan and while forms: mel_lengths "
+            f"{res['cpu', False][4].tolist()} on both devices, outputs max|diff| {d:.2e}")
+
+
+def phase_tacotron2_timing(torch, device, card):
+    """Tacotron 2 at full width (``Tacotron2Config()``, 28M parameters): the
+    train step at bench.py:584-593's shape, 64 × 128 random tokens × 512
+    N(0, 1) frames, full lengths, dropout on, the CLI's AdamW with clip, f32
+    (TF32 off) and ``--amp``; then serving: 8 × 128 random tokens through
+    ``infer`` (1000 decoder steps: the gate bias at -50, so no row stops),
+    then HiFi-GAN v1 on the 8 × 1000 frames (92.88 s of audio), as an RTF, f32
+    and bf16, each with a profiler split."""
+    from neuraltexttospeech_torch.cli.hifigan_infer import vocode
+    from neuraltexttospeech_torch.models.hifigan import Generator, HiFiGANConfig
+    from neuraltexttospeech_torch.models.tacotron2 import Tacotron2, Tacotron2Config
+    from neuraltexttospeech_torch.models.tacotron2_train import loss_fn, optimizer_config
+    from neuraltexttospeech_torch.train.harness import Trainer, TrainerConfig
+
+    B, T_TEXT, T_MEL = 64, 128, 512
+    batch = {k: torch.as_tensor(v, device=device) for k, v in tacotron2_batch(
+        np.random.default_rng(71), B, T_TEXT, T_MEL, 148, [T_TEXT] * B, [T_MEL] * B).items()}
+    out = {}
+    for amp in (False, True):
+        torch.manual_seed(0)
+        trainer = Trainer(loss_fn, Tacotron2(Tacotron2Config(dtype=torch.bfloat16 if amp
+                                                             else None)),
+                          TrainerConfig(optimizer=optimizer_config()), device)
+        mode = "bf16 (--amp)" if amp else "f32 (TF32 off)"
+        out["step", amp] = step_timing(
+            torch, trainer, batch, f"Tacotron 2 train step {mode}, full width, dropout on: batch "
+            f"{B} x {T_TEXT} tokens x {T_MEL} frames", card, B * T_MEL)
+        log(f"  host ({mode}): " + host_summary())
+        del trainer
+
+    torch.manual_seed(1)
+    weights = random_init_(Tacotron2(Tacotron2Config()).to(device), 72, device).state_dict()
+    with torch.no_grad():
+        weights["cell.gate_layer.bias"].fill_(-50.0)
+    gen = random_init_(Generator(HiFiGANConfig.v1()).to(device).eval(), 4, device)
+    rng = np.random.default_rng(73)
+    text = torch.as_tensor(rng.integers(1, 148, (8, T_TEXT)), dtype=torch.int32, device=device)
+    lens = torch.full((8,), T_TEXT, dtype=torch.int32, device=device)
+    for amp in (False, True):
+        dtype = torch.bfloat16 if amp else None
+        model = Tacotron2(Tacotron2Config(dtype=dtype)).to(device).eval()
+        model.load_state_dict(weights)
+
+        def run():
+            g = torch.Generator(device=device)
+            g.manual_seed(7)
+            with torch.inference_mode():
+                o = model.infer(text, lens, generator=g)
+            n = o.mel_lengths
+            return n, vocode(gen, o.mel_out_postnet.float()[:, :min(-(-int(n.max()) // 128) * 128,
+                                                                     1000)], dtype)
+
+        wall, walls, _, (n, audio) = timed_calls(torch, run, 3)
+        frames = int(n.sum())
+        if frames != 8 * 1000 or not torch.isfinite(audio).all():
+            raise RuntimeError(f"Tacotron 2 → wav bench: {frames} frames, finite "
+                               f"{bool(torch.isfinite(audio).all())}")
+        audio_s = frames * HOP / SR
+        mode = "bf16 (--amp)" if amp else "f32 (TF32 off)"
+        log(f"tacotron2wav {mode}: full-width Tacotron 2 (1000 decoder steps) + HiFi-GAN v1, "
+            f"batch 8 x {T_TEXT} tokens, {frames} frames = {audio_s:.3f} s audio: wall "
+            f"{wall:.4f} s (runs {runs(walls)} ms) = RTF {wall / audio_s:.3e}; peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+        log(f"  trace ({mode}): " + trace_summary(torch, run, wall))
+        log(f"  host ({mode}): " + host_summary())
+        out["serve", amp] = wall
+    return out
+
+
+def host_summary(top=5):
+    """From the last :func:`device_breakdown`: the host's kernel launches,
+    copy kernels, casts and ``cudaFuncGetAttributes`` calls, and its CUDA
+    runtime calls that took most time."""
+    launches, copies, casts, attrs = launch_counts()
+    runtime = sorted(device_breakdown.runtime.items(), key=lambda kv: -kv[1][1])[:top]
+    return (f"{launches} kernel launches, {copies} copy kernels, {casts} casts, {attrs} "
+            f"cudaFuncGetAttributes; runtime calls "
+            + "; ".join(f"{name} x{count} {ms:.1f} ms" for name, (count, ms) in runtime))
 
 
 def main():
@@ -2522,6 +2833,7 @@ def main():
         gradtts = phase_gradtts_train_cli(torch, device, smi)
         fs2_b1 = phase_fastspeech2_cli(torch, device, smi)
         talknet_b1 = phase_talknet_cli(torch, device, smi)
+        t2_b1 = phase_tacotron2_cli(torch, device, smi)
         # launches per step on the training paths (B1 and B2: the GAN step,
         # f32 and bf16; MAS: the FastPitch step, and the Grad-TTS step's
         # checked equal); serving's and dataset prep's B1 counts are checked
@@ -2534,7 +2846,7 @@ def main():
                                f"FastPitch step {mas['launches']}")
         log(f"B1 launches: serving path {serving}, GAN training path {train['b1']} (bf16 "
             f"{train_bf16['b1']}), FastPitch dataset prep {fastpitch['b1_prep']}, FastSpeech 2 "
-            f"prep {fs2_b1}; B2 launches: GAN training f32 {train['b2']}, bf16 "
+            f"prep {fs2_b1}, Tacotron 2 prep {t2_b1}; B2 launches: GAN training f32 {train['b2']}, bf16 "
             f"{train_bf16['b2']}; MAS launches: FastPitch training f32 "
             f"{fastpitch['f32']['mas']}, bf16 {fastpitch['bf16']['mas']}, Grad-TTS training "
             f"f32 {gradtts['f32']['mas']}, bf16 {gradtts['bf16']['mas']} (3 steps and 3 "
@@ -2548,6 +2860,7 @@ def main():
         phase_gradtts_train_reference(torch, device)
         phase_fastspeech2_reference(torch, device)
         phase_talknet_reference(torch, device)
+        phase_tacotron2_reference(torch, device)
         phase_timing(torch, device, smi)
         phase_train_timing(torch, train["trainer"], smi)
         phase_train_timing(torch, train_bf16["trainer"], smi)
@@ -2560,6 +2873,7 @@ def main():
             phase_gradtts_train_timing(torch, device, smi, amp)
             phase_fastspeech2_train_timing(torch, device, smi, amp)
         phase_talknet_timing(torch, device, smi)
+        phase_tacotron2_timing(torch, device, smi)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(json.dumps({"kernels": [b1, b2, b2_bf16, mas]}))

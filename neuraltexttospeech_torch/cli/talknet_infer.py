@@ -35,11 +35,10 @@ import numpy as np
 import torch
 
 from ..data.filelist import save_wav
-from ..models.registry import (WEIGHTS_FILE, load_checkpoint, load_frontend_config,
-                               load_model_config)
+from ..models.registry import load_checkpoint, load_frontend_config, load_model_config
 from ..models.talknet import GraphemeDuration, PitchPredictor, SpectrogramModel
 from ..text.processing import TextProcessing
-from ..train.checkpoint import checkpoint_steps
+from ..train.checkpoint import checkpoint_dir
 from ..utils.device import resolve_device
 from ..utils.masking import mask_from_lens
 from ..utils.serving import round_up, serving_sharding, text_batches
@@ -68,19 +67,6 @@ def parse_args(argv=None):
     p.add_argument("--sampling-rate", type=int, default=22050)
     p.add_argument("--device", default=None, help="torch device (default: cuda)")
     return p.parse_args(argv)
-
-
-def checkpoint_dir(path) -> pathlib.Path:
-    """The checkpoint dir of ``path``: itself when it holds ``model.pt``,
-    else the newest numbered step under it or under its ``checkpoints``."""
-    p = pathlib.Path(path)
-    if (p / WEIGHTS_FILE).exists():
-        return p
-    root = p if p.name == "checkpoints" else p / "checkpoints"
-    steps = checkpoint_steps(root)
-    if not steps:
-        raise FileNotFoundError(f"no TalkNet 2 checkpoint under {path}")
-    return root / str(steps[-1])
 
 
 def load_heads(duration, pitch, spectrogram, device: torch.device, amp: bool = False):

@@ -16,6 +16,10 @@ once converted with ``np.asarray``; nothing here imports flax. Mappings:
 - LayerNorm ``scale``/``bias`` → ``weight``/``bias`` (the eps of 1e-3 is
   the module's).
 - Embed ``embedding`` → ``Embedding.weight``.
+- LSTM cells (``LSTMCell``/``OptimizedLSTMCell``): the input kernels
+  ``ii/if/ig/io [in, H]`` → ``weight_ih [4H, in]`` and the hidden kernels
+  ``hi/hf/hg/ho [H, H]`` → ``weight_hh [4H, H]``, stacked in gate order, their
+  biases → ``bias_hh [4H]`` (``nn/rnn.py::LSTMCell``).
 - BatchNorm ``scale``/``bias`` → ``weight``/``bias``, and its
   ``batch_stats`` ``mean``/``var`` → the ``running_mean``/``running_var``
   buffers (``nn/layers.py::BatchNorm``). A depthwise conv's kernel ``[K, 1,
@@ -48,7 +52,7 @@ import torch
 __all__ = ["fastpitch_from_flax", "fastpitch_train_from_flax", "generator_from_flax",
            "fold_weight_norm", "hifigan_train_from_flax", "diffwave_from_flax",
            "gradtts_from_flax", "fastspeech2_from_flax", "quartznet_from_flax",
-           "talknet_from_flax"]
+           "talknet_from_flax", "tacotron2_from_flax"]
 
 _WN_EPS = 1e-12
 _WN = ".parametrizations.weight."
@@ -468,10 +472,11 @@ def fastspeech2_from_flax(params: dict) -> Dict[str, torch.Tensor]:
 
 
 def _batch_norm(sd, key, r: _Reader, stats: _Reader, *path):
-    sd[f"{key}.weight"] = _t(r.pop(*path, "BatchNorm_0", "scale"))
-    sd[f"{key}.bias"] = _t(r.pop(*path, "BatchNorm_0", "bias"))
-    sd[f"{key}.running_mean"] = _t(stats.pop(*path, "BatchNorm_0", "mean"))
-    sd[f"{key}.running_var"] = _t(stats.pop(*path, "BatchNorm_0", "var"))
+    """The flax ``BatchNorm`` at ``path``: parameters and statistics."""
+    sd[f"{key}.weight"] = _t(r.pop(*path, "scale"))
+    sd[f"{key}.bias"] = _t(r.pop(*path, "bias"))
+    sd[f"{key}.running_mean"] = _t(stats.pop(*path, "mean"))
+    sd[f"{key}.running_var"] = _t(stats.pop(*path, "var"))
 
 
 def _sep_conv(sd, key, r: _Reader, path, first: int):
@@ -486,18 +491,19 @@ def _quartznet(sd, prefix: str, r: _Reader, stats: _Reader, *path):
     BatchNorms ``_BN_0..2``; a block's are ``Conv_0`` and ``_BN_0`` (the
     residual), then ``Conv_{2i+1}``, ``Conv_{2i+2}`` and ``_BN_{i+1}``."""
     _sep_conv(sd, f"{prefix}initial", r, path, 0)
-    _batch_norm(sd, f"{prefix}initial_bn", r, stats, *path, "_BN_0")
+    _batch_norm(sd, f"{prefix}initial_bn", r, stats, *path, "_BN_0", "BatchNorm_0")
     for j in range(r.count(*path, prefix="QuartzNetBlock")):
         blk, bkey = (*path, f"QuartzNetBlock_{j}"), f"{prefix}blocks.{j}"
         _conv(sd, f"{bkey}.res_conv", r, *blk, "Conv_0")
-        _batch_norm(sd, f"{bkey}.res_bn", r, stats, *blk, "_BN_0")
+        _batch_norm(sd, f"{bkey}.res_bn", r, stats, *blk, "_BN_0", "BatchNorm_0")
         for i in range(r.count(*blk, prefix="_BN") - 1):
             _sep_conv(sd, f"{bkey}.convs.{i}", r, blk, 2 * i + 1)
-            _batch_norm(sd, f"{bkey}.bns.{i}", r, stats, *blk, f"_BN_{i + 1}")
+            _batch_norm(sd, f"{bkey}.bns.{i}", r, stats, *blk, f"_BN_{i + 1}",
+                        "BatchNorm_0")
     _sep_conv(sd, f"{prefix}penultimate", r, path, 2)
-    _batch_norm(sd, f"{prefix}penultimate_bn", r, stats, *path, "_BN_1")
+    _batch_norm(sd, f"{prefix}penultimate_bn", r, stats, *path, "_BN_1", "BatchNorm_0")
     _conv(sd, f"{prefix}final_conv", r, *path, "Conv_4")
-    _batch_norm(sd, f"{prefix}final_bn", r, stats, *path, "_BN_2")
+    _batch_norm(sd, f"{prefix}final_bn", r, stats, *path, "_BN_2", "BatchNorm_0")
     _conv(sd, f"{prefix}out", r, *path, "Conv_5")
 
 
@@ -532,6 +538,46 @@ def talknet_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
         if "Conv_0" in r.tree:  # SpectrogramModel's pitch conv
             _conv(sd, "pitch_conv", r, "Conv_0")
     _quartznet(sd, "backbone.", r, stats, "QuartzNet_0")
+    r.finish()
+    stats.finish()
+    return sd
+
+
+def _lstm(sd, key, r: _Reader, *path):
+    gates = "ifgo"
+    sd[f"{key}.weight_ih"] = _t(np.concatenate([r.pop(*path, f"i{g}", "kernel")
+                                                for g in gates], 1).T)
+    sd[f"{key}.weight_hh"] = _t(np.concatenate([r.pop(*path, f"h{g}", "kernel")
+                                                for g in gates], 1).T)
+    sd[f"{key}.bias_hh"] = _t(np.concatenate([r.pop(*path, f"h{g}", "bias") for g in gates]))
+
+
+def tacotron2_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
+    """flax ``Tacotron2`` variables ``{"params", "batch_stats"}`` →
+    ``models.tacotron2.Tacotron2`` state dict (BatchNorm buffers and the LSTM
+    kernels included; the encoder's forward direction is
+    ``OptimizedLSTMCell_0``, its backward ``_1``). Raises on any leaf of
+    either tree it does not consume."""
+    r, stats = _readers(variables)
+    sd: Dict[str, torch.Tensor] = {"embedding.weight": _t(r.pop("embedding", "embedding"))}
+    for part, node in (("encoder", "encoder"), ("postnet", "postnet")):
+        for i in range(r.count(node, prefix="Conv")):
+            _conv(sd, f"{part}.convs.{i}", r, node, f"Conv_{i}")
+            _batch_norm(sd, f"{part}.norms.{i}", r, stats, node, f"BatchNorm_{i}")
+    _lstm(sd, "encoder.lstm.fwd", r, "encoder", "OptimizedLSTMCell_0")
+    _lstm(sd, "encoder.lstm.bwd", r, "encoder", "OptimizedLSTMCell_1")
+    for i in range(2):
+        _dense(sd, f"cell.prenet.layers.{i}", r, "cell", "prenet", f"Dense_{i}")
+    for name in ("attention_rnn", "decoder_rnn"):
+        _lstm(sd, f"cell.{name}", r, "cell", name)
+    attn = ("cell", "attention_layer")
+    for name in ("query_layer", "memory_layer", "v"):
+        _dense(sd, f"cell.attention_layer.{name}", r, *attn, name)
+    _conv(sd, "cell.attention_layer.location_layer.conv", r, *attn, "location_layer", "Conv_0")
+    _dense(sd, "cell.attention_layer.location_layer.dense", r, *attn, "location_layer",
+           "Dense_0")
+    _dense(sd, "cell.linear_projection", r, "cell", "linear_projection")
+    _dense(sd, "cell.gate_layer", r, "cell", "gate_layer")
     r.finish()
     stats.finish()
     return sd

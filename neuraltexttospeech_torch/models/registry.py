@@ -28,6 +28,7 @@ from .fastpitch import FastPitch, FastPitchConfig
 from .fastspeech2 import FastSpeech2, FastSpeech2Config
 from .gradtts import GradTTS, GradTTSConfig
 from .hifigan import Generator, HiFiGANConfig
+from .tacotron2 import Tacotron2, Tacotron2Config
 from .talknet import QuartzNet, QuartzNetConfig, TalkNet2Config
 
 __all__ = ["CONFIG_REGISTRY", "MODEL_REGISTRY", "config_to_dict", "config_from_dict",
@@ -36,11 +37,13 @@ __all__ = ["CONFIG_REGISTRY", "MODEL_REGISTRY", "config_to_dict", "config_from_d
 
 MODEL_REGISTRY: Dict[str, type] = {"FastPitch": FastPitch, "HiFiGAN": Generator,
                                    "DiffWave": DiffWave, "GradTTS": GradTTS,
-                                   "FastSpeech2": FastSpeech2, "QuartzNet": QuartzNet}
+                                   "FastSpeech2": FastSpeech2, "QuartzNet": QuartzNet,
+                                   "Tacotron2": Tacotron2}
 CONFIG_REGISTRY: Dict[str, type] = {"FastPitch": FastPitchConfig, "HiFiGAN": HiFiGANConfig,
                                     "DiffWave": DiffWaveConfig, "GradTTS": GradTTSConfig,
                                     "FastSpeech2": FastSpeech2Config,
-                                    "QuartzNet": QuartzNetConfig, "TalkNet2": TalkNet2Config}
+                                    "QuartzNet": QuartzNetConfig, "TalkNet2": TalkNet2Config,
+                                    "Tacotron2": Tacotron2Config}
 WEIGHTS_FILE = "model.pt"
 
 

@@ -19,9 +19,9 @@ from typing import Any, List, Optional
 
 import torch
 
-from ..models.registry import save_checkpoint
+from ..models.registry import WEIGHTS_FILE, save_checkpoint
 
-__all__ = ["Checkpointer", "checkpoint_steps"]
+__all__ = ["Checkpointer", "checkpoint_steps", "checkpoint_dir"]
 
 STATE_FILE = "train_state.pt"
 
@@ -32,6 +32,20 @@ def checkpoint_steps(directory) -> List[int]:
     d = pathlib.Path(directory)
     return sorted(int(p.name) for p in d.iterdir()
                   if p.is_dir() and p.name.isdigit()) if d.is_dir() else []
+
+
+def checkpoint_dir(path) -> pathlib.Path:
+    """The serving checkpoint dir of ``path``: itself when it holds
+    ``model.pt``, else the newest numbered step under it or under its
+    ``checkpoints``."""
+    p = pathlib.Path(path)
+    if (p / WEIGHTS_FILE).exists():
+        return p
+    root = p if p.name == "checkpoints" else p / "checkpoints"
+    steps = checkpoint_steps(root)
+    if not steps:
+        raise FileNotFoundError(f"no checkpoint under {path}")
+    return root / str(steps[-1])
 
 
 class Checkpointer:

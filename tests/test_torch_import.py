@@ -31,6 +31,7 @@ def test_package_imports_without_jax():
         "import neuraltexttospeech_torch as P\n"
         "names = [m.name for m in pkgutil.walk_packages(P.__path__, 'neuraltexttospeech_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
+        "assert callable(importlib.import_module(P.__name__ + '.convert').tacotron2_from_flax)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(len(names), bad)\n"
@@ -43,7 +44,8 @@ def test_package_imports_without_jax():
     n_modules = int(out.stdout.split()[0])
     assert n_modules >= 20  # every submodule was imported
     for name in ("models.talknet", "data.asr_dataset", "cli.talknet_train",
-                 "cli.talknet_infer"):
+                 "cli.talknet_infer", "nn.rnn", "models.tacotron2", "models.tacotron2_train",
+                 "cli.tacotron2_prepare_dataset", "cli.tacotron2_train", "cli.tacotron2_infer"):
         assert f"neuraltexttospeech_torch.{name}" in out.stdout.split(), name
 
 
@@ -80,7 +82,8 @@ def test_chip_smoke_fails_outside_the_repo(tmp_path):
 
 
 @pytest.mark.parametrize("cli", ["fastpitch_infer", "hifigan_infer", "diffwave_infer",
-                                 "gradtts_infer", "fastspeech2_infer", "talknet_infer"])
+                                 "gradtts_infer", "fastspeech2_infer", "talknet_infer",
+                                 "tacotron2_infer"])
 def test_cli_without_device_raises_when_no_gpu(cli, tmp_path):
     import importlib
 
@@ -111,7 +114,8 @@ def test_resolve_device_policy():
 
 @pytest.mark.parametrize("cli", ["diffwave_train", "hifigan_train", "fastpitch_train",
                                  "gradtts_train", "fastspeech2_train",
-                                 "fastspeech2_prepare_dataset", "talknet_train"])
+                                 "fastspeech2_prepare_dataset", "talknet_train",
+                                 "tacotron2_prepare_dataset", "tacotron2_train"])
 def test_trainer_cli_without_device_raises_when_no_gpu(cli, tmp_path):
     import importlib
 
@@ -126,9 +130,11 @@ def test_trainer_cli_without_device_raises_when_no_gpu(cli, tmp_path):
                                             "--out-dir", str(tmp_path / "out")],
             "talknet_train": ["--model", "asr", "-o", str(tmp_path / "out"), "-d",
                               str(tmp_path / "list.txt")],
+            "tacotron2_prepare_dataset": ["-d", str(tmp_path / "feats"), "--training-files",
+                                          str(tmp_path / "list.txt")],
             }.get(cli, ["-o", str(tmp_path / "out"), "--training-files",
                         str(tmp_path / "list.txt")])
-    if cli in ("fastpitch_train", "gradtts_train"):
+    if cli in ("fastpitch_train", "gradtts_train", "tacotron2_train"):
         argv += ["-d", str(tmp_path / "feats")]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mod.main(argv)
