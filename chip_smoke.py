@@ -63,6 +63,16 @@ Phases, each raising on failure:
    ``tacotron2_train`` at ``Tacotron2Config()`` (batch 16, 2 steps then
    ``--resume`` for a 3rd, f32 and ``--amp``), ``tacotron2_infer`` of the 16
    sentences (1000 decoder steps) with the v1 vocoder, f32 and ``--amp``.
+   Flowtron: the same wavs through ``tacotron2_prepare_dataset`` again
+   (Flowtron's features; B1 once a wav, counted), ``flowtron_train`` at
+   ``FlowtronConfig()`` (batch 16, validation on, 2 steps then ``--resume``
+   for a 3rd, f32 and ``--amp``), ``flowtron_infer`` of the 16 sentences
+   (400 frames) with the v1 vocoder, f32 and ``--amp``. The data tools:
+   ``dump_mels`` on the FastPitch and Tacotron 2 runs (MAS once a batch on
+   FastPitch's, counted), one ``hifigan_train --fine-tuning-mel-dir`` step
+   on FastPitch's dumped mels, ``align_from_fastpitch`` (MAS once a batch)
+   and one ``fastspeech2_train`` step on its output, ``export`` of the
+   FastPitch run reloaded and compared.
 7. Reference checks: at a small width the card's text → wav and
    copy-synthesis agree with the same weights on the CPU, and so do one
    GAN step of the small (``TINY``) generator with the full MPD and MSD,
@@ -76,7 +86,9 @@ Phases, each raising on failure:
    tests/test_torch_bf16.py with the CPU's f32 run in the place of JAX's);
    a small Tacotron 2's forwards (the card's cuDNN BiLSTM against the CPU's
    loop), one train step (its BatchNorm buffers, and bf16) and ``infer`` in
-   both forms.
+   both forms; a small Flowtron's density pass (its LSTMs through cuDNN on
+   the card, the loop on the CPU) and ``infer``, one train step and its
+   bf16 step.
 8. Timing: text → wav at the ``bench.py`` shape (batch 8 × 128 tokens,
    1024 mel frames), f32 and bf16, in wall seconds per audio second; the v1
    GAN step in ms and samples/s, the FastPitch train step at the
@@ -93,7 +105,9 @@ Phases, each raising on failure:
    through the three heads and v1 at 8 × 128 tokens (f32 and ``--amp``);
    Tacotron 2 at full width: the train step at 64 × 128 tokens × 512 frames
    and text → wav through 1000 decoder steps and v1 at 8 × 128 tokens, each
-   f32 and ``--amp``.
+   f32 and ``--amp``; Flowtron at full width: the train step at 96 × 128
+   tokens × 384 frames and noise → mel → wav through 2 flows × 1000 frames
+   and v1 at 8 × 128 tokens, each f32 and ``--amp``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -800,6 +814,15 @@ def phase_fine_tuning(torch, device, card):
                            f"expected 1 and {want_b2}")
 
 
+def counted_kernels():
+    """The wrappers whose ``launches`` count the kernels' launches: B1, B2
+    and MAS."""
+    from neuraltexttospeech_torch.ops import gouter_kernel, mas_kernel, mel_kernel
+
+    return (mel_kernel.fused_frames_to_mel, gouter_kernel.gouter_tap_dots_kernel,
+            mas_kernel.maximum_path)
+
+
 def phase_fastpitch_training(torch, device, card):
     """FastPitch training through its CLIs at full width: dataset prep of 16
     synthetic wavs with the ``SENTENCES`` texts on the card (B1 once per
@@ -835,8 +858,7 @@ def phase_fastpitch_training(torch, device, card):
         run_dir = WORK / f"fp_train_{tag}"
         args = ["-o", str(run_dir), "-d", str(feats), "--training-files", str(filelist),
                 "-bs", "16", "--steps-per-epoch", "1"] + flags
-        for counted in (mel_kernel.fused_frames_to_mel, gouter_kernel.gouter_tap_dots_kernel,
-                        mas_kernel.maximum_path):
+        for counted in counted_kernels():
             counted.launches = 0
         t0 = time.perf_counter()
         first = fastpitch_train.main(args + ["--epochs", "2"])
@@ -1101,27 +1123,34 @@ def device_breakdown(torch, fn, top=6):
         fn()
         torch.cuda.synchronize()
 
-    def on_device(e):  # GPU user annotations are ranges, not kernels
-        return e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
-
-    averages = prof.key_averages()  # seconds for a trace of ~100k launches: once
-    events = [e for e in averages if on_device(e)]
-    kernels = [(e.self_device_time_total / 1e3, e.key) for e in events]
-    busy, end = 0.0, float("-inf")
-    for start, stop in sorted((e.time_range.start, e.time_range.end)
-                              for e in prof.events() if on_device(e)):
-        busy += max(0.0, stop - max(start, end))
+    # the profiler's raw records: building its FunctionEvents (``key_averages``,
+    # ``events``) took 17 s for a trace of 11k launches, these are read in one
+    kernel, ops, runtime, spans = {}, {}, {}, []
+    for e in prof.profiler.kineto_results.events():
+        name, ms = e.name(), e.duration_ns() / 1e6
+        if e.device_type() == DeviceType.CUDA:
+            if e.is_user_annotation():  # GPU user annotations are ranges, not kernels
+                continue
+            total, count = kernel.get(name, (0.0, 0))
+            kernel[name] = (total + ms, count + 1)
+            spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+        elif name.startswith("aten::"):
+            ops[name] = ops.get(name, 0) + 1
+        elif name.startswith(("cuda", "cu")):
+            count, total = runtime.get(name, (0, 0.0))
+            runtime[name] = (count + 1, total + ms)
+    busy, end = 0, float("-inf")
+    for start, stop in sorted(spans):
+        busy += max(0, stop - max(start, end))
         end = max(end, stop)
+    kernels = [(ms, name) for name, (ms, _) in kernel.items()]
     device_breakdown.last = kernels
     device_breakdown.kernel_sum = sum(ms for ms, _ in kernels)
-    device_breakdown.launches = sum(e.count for e in events)
-    device_breakdown.counts = {e.key: e.count for e in events}
-    device_breakdown.ops = {e.key: e.count for e in averages
-                            if e.device_type != DeviceType.CUDA and e.key.startswith("aten::")}
-    device_breakdown.runtime = {  # host side: CUDA runtime calls, (count, ms)
-        e.key: (e.count, e.self_cpu_time_total / 1e3) for e in averages
-        if e.device_type != DeviceType.CUDA and e.key.startswith(("cuda", "cu"))}
-    return busy / 1e3, sorted(kernels, reverse=True)[:top]
+    device_breakdown.launches = len(spans)
+    device_breakdown.counts = {name: count for name, (_, count) in kernel.items()}
+    device_breakdown.ops = ops
+    device_breakdown.runtime = runtime  # host side: CUDA runtime calls, (count, ms)
+    return busy / 1e6, sorted(kernels, reverse=True)[:top]
 
 
 def phase_timing(torch, device, card):
@@ -1577,12 +1606,28 @@ def phase_gradtts_bench(torch, device, card):
     return out
 
 
+def check_served(what, out, max_frames=None):
+    """Each of the ``SENTENCES``' served mel (``[n, 80]``, ``n > 0`` and at
+    most ``max_frames``, finite) and wav (``n · 256`` finite samples at
+    22.05 kHz) in ``out``; returns the frame counts."""
+    from scipy.io import wavfile
+
+    frames = []
+    for j in range(len(SENTENCES)):
+        mel = np.load(out / f"utt_{j:04d}_mel.npy")
+        sr, audio = wavfile.read(out / f"utt_{j:04d}.wav")
+        if (mel.ndim != 2 or mel.shape[1] != 80 or not 0 < mel.shape[0] <= (max_frames or np.inf)
+                or not np.isfinite(mel).all() or sr != SR
+                or audio.shape != (mel.shape[0] * HOP,) or not np.isfinite(audio).all()):
+            raise RuntimeError(f"{what} utterance {j}: mel {mel.shape}, audio {audio.shape}")
+        frames.append(mel.shape[0])
+    return frames
+
+
 def phase_gradtts_serve(torch, device, card):
     """The 16 ``SENTENCES`` through ``gradtts_infer.main`` with a full-width
     Grad-TTS and a HiFi-GAN v1 checkpoint (random weights), batch 8, f32 and
     ``--amp``: a mel and a wav of ``ylen · hop`` samples per sentence, finite."""
-    from scipy.io import wavfile
-
     from neuraltexttospeech_torch.cli import gradtts_infer
     from neuraltexttospeech_torch.models.gradtts import GradTTSConfig
     from neuraltexttospeech_torch.models.hifigan import Generator, HiFiGANConfig
@@ -1602,15 +1647,7 @@ def phase_gradtts_serve(torch, device, card):
         gradtts_infer.main(["--checkpoint", str(gt_dir), "--hifigan-checkpoint", str(hg_dir),
                             "-i", str(text_file), "-o", str(out), "-bs", "8"] + flags)
         torch.cuda.synchronize()
-        frames = 0
-        for j in range(len(SENTENCES)):
-            mel = np.load(out / f"utt_{j:04d}_mel.npy")
-            sr, audio = wavfile.read(out / f"utt_{j:04d}.wav")
-            if (mel.ndim != 2 or mel.shape[1] != 80 or not np.isfinite(mel).all() or sr != SR
-                    or audio.shape != (mel.shape[0] * HOP,)):
-                raise RuntimeError(f"gradtts_infer ({tag}) utterance {j}: mel {mel.shape}, "
-                                   f"audio {audio.shape}")
-            frames += mel.shape[0]
+        frames = sum(check_served(f"gradtts_infer ({tag})", out))
         log(f"Grad-TTS serving path ({tag}): {len(SENTENCES)} sentences, batch 8, 10 steps, "
             f"{frames} frames in {time.perf_counter() - t0:.2f} s (first calls, checkpoint "
             f"load included); mels and wavs of ylen · hop samples, finite [{card}]")
@@ -1807,8 +1844,7 @@ def phase_gradtts_train_cli(torch, device, card):
         run_dir = WORK / f"gt_train_{tag}"
         args = ["-o", str(run_dir), "-d", str(feats), "--training-files", str(filelist),
                 "--validation-files", str(filelist), "-bs", "16", "--steps-per-epoch", "1"] + flags
-        for counted in (mel_kernel.fused_frames_to_mel, gouter_kernel.gouter_tap_dots_kernel,
-                        mas_kernel.maximum_path):
+        for counted in counted_kernels():
             counted.launches = 0
         t0 = time.perf_counter()
         first = gradtts_train.main(args + ["--epochs", "2"])
@@ -1843,23 +1879,13 @@ def phase_gradtts_train_cli(torch, device, card):
         out[tag] = {"mas": mas, "mas_per_step": (mas - val_batches) // steps}
         del trainer, first, resumed
 
-    from scipy.io import wavfile
-
     served = WORK / "gt_trained_serve"
     t0 = time.perf_counter()
     gradtts_infer.main(["--checkpoint", str(WORK / "gt_train_f32" / "checkpoints" / "3"),
                         "--hifigan-checkpoint", str(WORK / "gt_serve" / "hifigan"), "-i",
                         str(WORK / "gt_sentences.txt"), "-o", str(served), "-bs", "8"])
     torch.cuda.synchronize()
-    frames = 0
-    for j in range(len(SENTENCES)):
-        mel = np.load(served / f"utt_{j:04d}_mel.npy")
-        sr, audio = wavfile.read(served / f"utt_{j:04d}.wav")
-        if (mel.ndim != 2 or mel.shape[1] != 80 or not mel.shape[0] or not np.isfinite(mel).all()
-                or sr != SR or audio.shape != (mel.shape[0] * HOP,)):
-            raise RuntimeError(f"gradtts_infer from the trained checkpoint, utterance {j}: mel "
-                               f"{mel.shape}, audio {audio.shape}")
-        frames += mel.shape[0]
+    frames = sum(check_served("gradtts_infer from the trained checkpoint", served))
     log(f"Grad-TTS serving from the trained checkpoint: {len(SENTENCES)} sentences, {frames} "
         f"frames in {time.perf_counter() - t0:.2f} s (first call, checkpoint load included); "
         f"mels and wavs of ylen · hop samples, finite [{card}]")
@@ -1887,8 +1913,6 @@ def phase_fastspeech2_cli(torch, device, card):
     ``--resume`` for a 3rd, f32 and ``--amp`` → ``fastspeech2_infer`` of the 16
     sentences with the serving phase's HiFi-GAN v1, f32 and ``--amp``: finite
     wavs of ``dec_lens · 256`` samples. Returns B1's launches in prep."""
-    from scipy.io import wavfile
-
     from neuraltexttospeech_torch.audio.stft import STFTConfig, windowed_frames
     from neuraltexttospeech_torch.cli import (fastspeech2_infer, fastspeech2_prepare_dataset,
                                               fastspeech2_train)
@@ -1954,8 +1978,7 @@ def phase_fastspeech2_cli(torch, device, card):
         run_dir = WORK / f"fs2_train_{tag}"
         args = ["-o", str(run_dir), "-d", str(pre), "--validation-split", "val", "-bs", "12",
                 "--steps-per-epoch", "1"] + flags
-        for counted in (mel_kernel.fused_frames_to_mel, gouter_kernel.gouter_tap_dots_kernel,
-                        mas_kernel.maximum_path):
+        for counted in counted_kernels():
             counted.launches = 0
         t0 = time.perf_counter()
         first = fastspeech2_train.main(args + ["--epochs", "2"])
@@ -1999,16 +2022,7 @@ def phase_fastspeech2_cli(torch, device, card):
                                 str(WORK / "gt_sentences.txt"), "-o", str(out), "-bs", "8"]
                                + flags)
         torch.cuda.synchronize()
-        frames = 0
-        for j in range(len(SENTENCES)):
-            mel = np.load(out / f"utt_{j:04d}_mel.npy")
-            sr, audio = wavfile.read(out / f"utt_{j:04d}.wav")
-            if (mel.ndim != 2 or mel.shape[1] != 80 or not mel.shape[0]
-                    or not np.isfinite(mel).all() or sr != SR
-                    or audio.shape != (mel.shape[0] * HOP,) or not np.isfinite(audio).all()):
-                raise RuntimeError(f"fastspeech2_infer ({tag}) utterance {j}: mel {mel.shape}, "
-                                   f"audio {audio.shape}")
-            frames += mel.shape[0]
+        frames = sum(check_served(f"fastspeech2_infer ({tag})", out))
         log(f"FastSpeech 2 serving path ({tag}): {len(SENTENCES)} sentences, batch 8, {frames} "
             f"frames in {time.perf_counter() - t0:.2f} s (first call, checkpoint load "
             f"included); mels and wavs of dec_lens · hop samples, finite [{card}]")
@@ -2247,16 +2261,12 @@ def phase_talknet_cli(torch, device, card):
     ``--resume`` for a 3rd; then ``talknet_infer`` of the 16 sentences with
     the serving phase's HiFi-GAN v1, f32 and ``--amp``: finite wavs of
     ``n · 256`` samples. Returns B1's ASR launches."""
-    from scipy.io import wavfile
-
     from neuraltexttospeech_torch.cli import talknet_infer, talknet_train
     from neuraltexttospeech_torch.data.asr_dataset import ASRDataset
     from neuraltexttospeech_torch.models.registry import load_checkpoint, save_checkpoint
     from neuraltexttospeech_torch.models.talknet import GraphemeDuration
-    from neuraltexttospeech_torch.ops import gouter_kernel, mas_kernel, mel_kernel
 
-    counted = (mel_kernel.fused_frames_to_mel, gouter_kernel.gouter_tap_dots_kernel,
-               mas_kernel.maximum_path)
+    counted = counted_kernels()
 
     def run_cli(tag, argv, expect_dtype):
         for fn in counted:
@@ -2339,16 +2349,7 @@ def phase_talknet_cli(torch, device, card):
                             "--hifigan-checkpoint", str(WORK / "gt_serve" / "hifigan"), "-i",
                             str(WORK / "gt_sentences.txt"), "-o", str(out), "-bs", "8"] + flags)
         torch.cuda.synchronize()
-        frames = 0
-        for j in range(len(SENTENCES)):
-            mel = np.load(out / f"utt_{j:04d}_mel.npy")
-            sr, audio = wavfile.read(out / f"utt_{j:04d}.wav")
-            if (mel.ndim != 2 or mel.shape[1] != 80 or not mel.shape[0]
-                    or not np.isfinite(mel).all() or sr != SR
-                    or audio.shape != (mel.shape[0] * HOP,) or not np.isfinite(audio).all()):
-                raise RuntimeError(f"talknet_infer ({tag}) utterance {j}: mel {mel.shape}, "
-                                   f"audio {audio.shape}")
-            frames += mel.shape[0]
+        frames = sum(check_served(f"talknet_infer ({tag})", out))
         log(f"TalkNet 2 serving path ({tag}): {len(SENTENCES)} sentences through the three "
             f"heads and HiFi-GAN v1, batch 8, {frames} frames in {time.perf_counter() - t0:.2f} s "
             f"(first call, checkpoint loads included); mels and wavs of n · hop samples, finite "
@@ -2551,16 +2552,13 @@ def phase_tacotron2_cli(torch, device, card):
     ``tacotron2_infer`` of the 16 sentences with the serving phase's HiFi-GAN
     v1, f32 and ``--amp``, 1000 decoder steps: finite wavs of ``n · 256``
     samples. Returns B1's launches in prep."""
-    from scipy.io import wavfile
-
     from neuraltexttospeech_torch.audio.stft import STFT
     from neuraltexttospeech_torch.cli import (tacotron2_infer, tacotron2_prepare_dataset,
                                               tacotron2_train)
     from neuraltexttospeech_torch.data.filelist import load_wav
-    from neuraltexttospeech_torch.ops import gouter_kernel, mas_kernel, mel_kernel
+    from neuraltexttospeech_torch.ops import mel_kernel
 
-    counted = (mel_kernel.fused_frames_to_mel, gouter_kernel.gouter_tap_dots_kernel,
-               mas_kernel.maximum_path)
+    counted = counted_kernels()
     filelist, feats = WORK / "fp_train.txt", WORK / "t2_feats"
     wavs = [line.split("|")[0] for line in filelist.read_text().splitlines()]
     mel_kernel.fused_frames_to_mel.launches = 0
@@ -2621,16 +2619,7 @@ def phase_tacotron2_cli(torch, device, card):
                               str(WORK / "gt_sentences.txt"), "-o", str(out), "-bs", "8"]
                              + flags)
         torch.cuda.synchronize()
-        frames = []
-        for j in range(len(SENTENCES)):
-            mel = np.load(out / f"utt_{j:04d}_mel.npy")
-            sr, audio = wavfile.read(out / f"utt_{j:04d}.wav")
-            if (mel.ndim != 2 or mel.shape[1] != 80 or not 0 < mel.shape[0] <= 1000
-                    or not np.isfinite(mel).all() or sr != SR
-                    or audio.shape != (mel.shape[0] * HOP,) or not np.isfinite(audio).all()):
-                raise RuntimeError(f"tacotron2_infer ({tag}) utterance {j}: mel {mel.shape}, "
-                                   f"audio {audio.shape}")
-            frames.append(mel.shape[0])
+        frames = check_served(f"tacotron2_infer ({tag})", out, 1000)
         log(f"Tacotron 2 serving path ({tag}): {len(SENTENCES)} sentences, batch 8, 1000 decoder "
             f"steps, HiFi-GAN v1: {sum(frames)} frames ({min(frames)}–{max(frames)} an "
             f"utterance) in {time.perf_counter() - t0:.2f} s (first call, checkpoint loads "
@@ -2788,15 +2777,335 @@ def phase_tacotron2_timing(torch, device, card):
     return out
 
 
-def host_summary(top=5):
-    """From the last :func:`device_breakdown`: the host's kernel launches,
-    copy kernels, casts and ``cudaFuncGetAttributes`` calls, and its CUDA
-    runtime calls that took most time."""
-    launches, copies, casts, attrs = launch_counts()
-    runtime = sorted(device_breakdown.runtime.items(), key=lambda kv: -kv[1][1])[:top]
-    return (f"{launches} kernel launches, {copies} copy kernels, {casts} casts, {attrs} "
-            f"cudaFuncGetAttributes; runtime calls "
-            + "; ".join(f"{name} x{count} {ms:.1f} ms" for name, (count, ms) in runtime))
+def phase_flowtron_cli(torch, device, card):
+    """Flowtron through its CLIs at full width (``FlowtronConfig()``): the
+    FastPitch phase's 16 synthetic wavs through ``tacotron2_prepare_dataset``
+    on the card (Flowtron's features: B1 once a wav, counted; each cached
+    log-mel held against the host's plain path); ``flowtron_train``, batch
+    16, a validation pass each epoch, 2 steps then ``--resume`` for a 3rd,
+    f32 and ``--amp`` (no kernel launched: the mels are cached); then
+    ``flowtron_infer`` of the 16 sentences with the serving phase's HiFi-GAN
+    v1, 400 frames, f32 and ``--amp``: finite mels and wavs of ``n · 256``
+    samples. Returns B1's launches in prep."""
+    from neuraltexttospeech_torch.audio.stft import STFT
+    from neuraltexttospeech_torch.cli import (flowtron_infer, flowtron_train,
+                                              tacotron2_prepare_dataset)
+    from neuraltexttospeech_torch.data.filelist import load_wav
+    from neuraltexttospeech_torch.ops import mel_kernel
+
+    filelist, feats = WORK / "fp_train.txt", WORK / "fl_feats"
+    wavs = [line.split("|")[0] for line in filelist.read_text().splitlines()]
+    counted = counted_kernels()
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    tacotron2_prepare_dataset.main(["-d", str(feats), "--training-files", str(filelist)])
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    b1_prep = mel_kernel.fused_frames_to_mel.launches
+    if b1_prep != len(wavs) or any(fn.launches for fn in counted[1:]):
+        raise RuntimeError(f"Flowtron prep launched B1/B2/MAS "
+                           f"{tuple(fn.launches for fn in counted)} times for {len(wavs)} wavs")
+    host, d_host = STFT(device="cpu"), 0.0
+    for path in wavs:
+        saved = np.load(feats / pathlib.Path(path).name.replace(".wav", "_mel.npy"))
+        want = host.mel_spectrogram(load_wav(path, SR)[0]).numpy()
+        np.testing.assert_allclose(saved, want, atol=1e-3, rtol=1e-4, err_msg=path)
+        d_host = max(d_host, float(np.abs(saved - want).max()))
+    log(f"Flowtron prep path: {len(wavs)} wavs in {prep_s:.2f} s; B1 launches {b1_prep}; cached "
+        f"log-mels vs the host's plain path max|diff| {d_host:.3e} (atol 1e-3, rtol 1e-4) "
+        f"[{card}]")
+
+    for tag, flags in (("f32", []), ("bf16", ["--amp"])):
+        argv = ["-o", str(WORK / f"fl_train_{tag}"), "-d", str(feats), "--training-files",
+                str(filelist), "--validation-files", str(filelist), "-bs", "16",
+                "--steps-per-epoch", "1"] + flags
+        for fn in counted:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        first = flowtron_train.main(argv + ["--epochs", "2"])
+        resumed = flowtron_train.main(argv + ["--epochs", "3", "--resume"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        trainer, dtype = resumed["trainer"], torch.bfloat16 if flags else None
+        counts = tuple(fn.launches for fn in counted)
+        if (first["steps"], resumed["steps"], trainer.step, resumed["config"].dtype) != (
+                2, 1, 3, dtype) or any(counts):
+            raise RuntimeError(f"Flowtron trainer ({tag}): {first['steps']} + "
+                               f"{resumed['steps']} steps, step {trainer.step}, B1/B2/MAS "
+                               f"launches {counts}")
+        for run in (first, resumed):
+            metrics = {**run["metrics"], **run["val"]}
+            if not run["metrics"] or not run["val"] or not all(
+                    np.isfinite(v) for v in metrics.values()):
+                raise RuntimeError(f"non-finite or missing Flowtron metrics ({tag}): {run}")
+        state = trainer.model.state_dict()
+        if any(v.dtype != torch.float32 or not torch.isfinite(v).all() for v in state.values()):
+            raise RuntimeError(f"Flowtron ({tag}): parameters not finite f32")
+        n_params = sum(p.numel() for p in trainer.model.parameters())
+        log(f"Flowtron training path ({tag}): FlowtronConfig() ({n_params / 1e6:.2f}M "
+            f"parameters), batch 16, 3 steps (2, then --resume 1) and a validation pass an epoch "
+            f"in {wall:.1f} s with set-up and checkpoints; B1/B2/MAS launches {counts}; last "
+            f"losses " + " ".join(f"{k}={v:.4f}" for k, v in sorted(resumed["metrics"].items()))
+            + "; validation " + " ".join(f"{k}={v:.4f}" for k, v in sorted(resumed["val"].items()))
+            + f" [{card}]")
+        del trainer, first, resumed
+
+    for tag, flags in (("f32", []), ("bf16", ["--amp"])):
+        out = WORK / f"fl_wavs_{tag}"
+        t0 = time.perf_counter()
+        flowtron_infer.main(["--checkpoint", str(WORK / "fl_train_f32"), "--hifigan-checkpoint",
+                             str(WORK / "gt_serve" / "hifigan"), "-i",
+                             str(WORK / "gt_sentences.txt"), "-o", str(out), "-bs", "8",
+                             "--n-frames", "400"] + flags)
+        torch.cuda.synchronize()
+        frames = check_served(f"flowtron_infer ({tag})", out, 400)
+        log(f"Flowtron serving path ({tag}): {len(SENTENCES)} sentences, batch 8, 400 frames of "
+            f"z (sigma 0.8), HiFi-GAN v1: {sum(frames)} frames ({min(frames)}–{max(frames)} an "
+            f"utterance after the gate trim) in {time.perf_counter() - t0:.2f} s (first call, "
+            f"checkpoint loads included); mels and wavs of n · hop samples, finite [{card}]")
+    return b1_prep
+
+
+def phase_tools_cli(torch, device, card):
+    """The data tools on the card, on the earlier phases' checkpoints:
+    ``dump_mels --model fastpitch`` (the FastPitch phase's f32 run, its
+    prepared features; MAS once a batch of 8, counted) and ``--model
+    tacotron2`` (the Tacotron 2 phase's f32 run; no kernel), each mel the
+    length of its cached log-mel and finite; one v1 GAN step through
+    ``hifigan_train --fine-tuning-mel-dir`` on the FastPitch mels (B1 once,
+    B2 as in any GAN step); ``align_from_fastpitch`` (MAS once a batch,
+    counted; durations summing to each mel's frames), then one
+    ``fastspeech2_train`` step (batch 16) on its output; ``export`` of the
+    FastPitch run, reloaded on the card and held equal to the checkpoint's
+    model. Returns MAS's launches on the two tools' paths."""
+    from neuraltexttospeech_torch.cli import (align_from_fastpitch, dump_mels, export,
+                                              fastspeech2_train, hifigan_train)
+    from neuraltexttospeech_torch.models.registry import load_checkpoint
+    from neuraltexttospeech_torch.train.checkpoint import checkpoint_dir
+
+    counted = counted_kernels()
+    filelist = WORK / "fp_train.txt"
+    stems = [pathlib.Path(line.split("|")[0]).stem for line in filelist.read_text().splitlines()]
+    batches = -(-len(stems) // 8)
+    mas = {}
+    for model, run, feats in (("fastpitch", "fp_train_f32", "fp_feats"),
+                              ("tacotron2", "t2_train_f32", "t2_feats")):
+        out = WORK / f"dumped_{model}"
+        for fn in counted:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        dump_mels.main(["--model", model, "--checkpoint", str(WORK / run), "-d",
+                        str(WORK / feats), "--training-files", str(filelist), "-o", str(out),
+                        "--batch-size", "8"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = tuple(fn.launches for fn in counted)
+        want_mas = batches if model == "fastpitch" else 0
+        if counts != (0, 0, want_mas):
+            raise RuntimeError(f"dump_mels --model {model} launched B1/B2/MAS {counts} times; "
+                               f"expected (0, 0, {want_mas})")
+        for stem in stems:
+            mel, ref = (np.load(d / f"{stem}_mel.npy") for d in (out, WORK / feats))
+            if mel.shape != ref.shape or not np.isfinite(mel).all():
+                raise RuntimeError(f"dump_mels --model {model} {stem}: {mel.shape}, cached "
+                                   f"{ref.shape}")
+        mas[f"dump_mels {model}"] = counts[2]
+        log(f"dump_mels --model {model}: {len(stems)} utterances in {batches} batches of 8 in "
+            f"{wall:.2f} s; B1/B2/MAS launches {counts} [{card}]")
+
+    for fn in counted:
+        fn.launches = 0
+    run = hifigan_train.main(["--config", "v1", "-o", str(WORK / "train_ft_dumped"),
+                              "--training-files", str(filelist), "--steps-per-epoch", "1",
+                              "--epochs", "1", "--fine-tuning-mel-dir",
+                              str(WORK / "dumped_fastpitch")])
+    torch.cuda.synchronize()
+    b1, b2 = counted[0].launches, counted[1].launches
+    if (run["steps"] != 1 or not all(np.isfinite(v) for v in run["metrics"].values())
+            or b1 != 1 or b2 != b2_launches_per_step(8192)):
+        raise RuntimeError(f"fine-tuning on dumped mels: {run['steps']} steps, B1 {b1}, B2 {b2}, "
+                           f"{run['metrics']}")
+    log(f"fine-tuning on FastPitch's dumped mels: one v1 GAN step, batch 16 x 8192; B1 {b1}, "
+        f"B2 {b2}; losses " + " ".join(f"{k}={v:.4f}" for k, v in sorted(run["metrics"].items())))
+
+    aligned = WORK / "fp_aligned"
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    lines = align_from_fastpitch.main(["--checkpoint", str(WORK / "fp_train_f32"), "-d",
+                                       str(WORK / "fp_feats"), "--training-files", str(filelist),
+                                       "-o", str(aligned), "--batch-size", "8"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = tuple(fn.launches for fn in counted)
+    if counts != (0, 0, batches) or len(lines) != len(stems):
+        raise RuntimeError(f"align_from_fastpitch: {len(lines)} lines, B1/B2/MAS {counts}")
+    for stem in stems:
+        d = np.load(aligned / f"{stem}_duration.npy")
+        n_mel = np.load(aligned / f"{stem}_mel.npy").shape[0]
+        p, e = (np.load(aligned / f"{stem}_{k}.npy") for k in ("pitch", "energy"))
+        if int(d.sum()) != n_mel or p.shape != d.shape or e.shape != d.shape or not (
+                np.isfinite(p).all() and np.isfinite(e).all()):
+            raise RuntimeError(f"align_from_fastpitch {stem}: durations sum {d.sum()} of "
+                               f"{n_mel} frames, pitch {p.shape}, energy {e.shape}")
+    mas["align_from_fastpitch"] = counts[2]
+    fs2 = fastspeech2_train.main(["-o", str(WORK / "fs2_aligned"), "-d", str(aligned), "-bs",
+                                  "16", "--steps-per-epoch", "1", "--epochs", "1"])
+    if fs2["steps"] != 1 or not all(np.isfinite(v) for v in fs2["metrics"].values()):
+        raise RuntimeError(f"fastspeech2_train on the aligned corpus: {fs2}")
+    log(f"align_from_fastpitch: {len(lines)} utterances in {wall:.2f} s, durations summing to "
+        f"each mel's frames; B1/B2/MAS launches {counts}; then one fastspeech2_train step on "
+        f"them: " + " ".join(f"{k}={v:.4f}" for k, v in sorted(fs2["metrics"].items()))
+        + f" [{card}]")
+
+    art = WORK / "export" / "fastpitch.pt"
+    meta = export.main(["--model", "FastPitch", "--checkpoint", str(WORK / "fp_train_f32"),
+                        "-o", str(art)])
+    exported, _ = export.load_export(art, device)
+    ref, _ = load_checkpoint(checkpoint_dir(WORK / "fp_train_f32"), "FastPitch", device)
+    text = torch.randint(1, 148, (4, 32), device=device,
+                         generator=torch.Generator(device=device).manual_seed(1))
+    with torch.no_grad():
+        for x, y in zip(exported.infer(text, None, max_mel_len=256),
+                        ref.infer(text, None, max_mel_len=256)):
+            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6)
+    log(f"export: FastPitch step {meta['step']} → {art.name} "
+        f"({art.stat().st_size / 1e6:.1f} MB), reloaded on the card: infer equal to the "
+        f"checkpoint's model")
+    return mas
+
+
+# a small Flowtron for the card-vs-CPU checks: every width cut, the real 80 mels
+FL_SMALL = dict(n_text_dim=64, n_speaker_dim=16, n_attn_channels=64, n_hidden=128)
+# Adam at eps 1e-5 for the card-vs-CPU step: the encoders' conv biases feed
+# instance norms, so their gradients are zero but for rounding
+FL_ADAM = dict(learning_rate=1e-3, beta1=0.9, beta2=0.999, eps=1e-5, grad_clip_norm=1.0)
+
+
+def flowtron_batch(rng, batch, t_text, t_mel, n_text, text_lens, mel_lens):
+    """Random tokens and N(0, 1) mels, zero past each length (numpy)."""
+    out = tacotron2_batch(rng, batch, t_text, t_mel, n_text, text_lens, mel_lens)
+    out["speaker"] = np.zeros(batch, np.int32)
+    return out
+
+
+def phase_flowtron_reference(torch, device):
+    """A small Flowtron (``FL_SMALL``), card vs CPU from the same weights,
+    dropout off: the density pass with ragged lengths (the card's LSTMs
+    through cuDNN, one call a pass, the CPU's through the loop) and
+    ``infer`` on the same ``z`` at atol 1e-4 / rtol 1e-4; one train step at
+    the trainer tolerances, and its ``--amp`` step by
+    :func:`check_bf16_step`."""
+    from neuraltexttospeech_torch.cli.flowtron_train import make_loss_fn
+    from neuraltexttospeech_torch.models.flowtron import Flowtron, FlowtronConfig
+
+    def make(amp=False):
+        return Flowtron(FlowtronConfig(**FL_SMALL, dtype=torch.bfloat16 if amp else None))
+
+    torch.manual_seed(81)
+    weights = {k: v.clone() for k, v in
+               random_init_(make(), 82, torch.device("cpu")).state_dict().items()}
+    batch = flowtron_batch(np.random.default_rng(83), 3, 24, 64, 185, [24, 17, 9],
+                           [64, 51, 30])
+    z = np.random.default_rng(84).standard_normal((3, 48, 80)).astype(np.float32) * 0.8
+    outs = {}
+    for dev in (device, torch.device("cpu")):
+        m = make().to(dev)
+        m.load_state_dict(weights)
+        t = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        with torch.no_grad():
+            out = m(t["mel"], t["speaker"], t["text"], t["input_lens"], t["mel_lens"])
+            mel, gate, attns = m.infer(torch.as_tensor(z, device=dev), t["speaker"], t["text"],
+                                       t["input_lens"])
+        outs[dev.type] = [x.cpu() for x in (out.z, out.log_s_sum, out.gate_out, *out.attns,
+                                            mel, gate, *attns)]
+    worst = 0.0
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        worst = max(worst, (got - want).abs().max().item())
+    log(f"reference: small Flowtron density pass (cuDNN LSTMs against the CPU's loop) and infer "
+        f"card vs CPU max|diff| {worst:.2e} (atol 1e-4, rtol 1e-4)")
+    loss_fn = make_loss_fn()
+    steps = train_steps_card_and_cpu(torch, make, weights,
+                                     lambda model, b, generator: loss_fn(model, b, None),
+                                     FL_ADAM, batch, device, model_amp=True)
+    label = "small Flowtron train step"
+    check_f32_step(label, steps)
+    check_bf16_step(label, *({k: v[i] for k, v in steps.items()} for i in range(3)),
+                    FL_ADAM["learning_rate"])
+
+
+def phase_flowtron_timing(torch, device, card):
+    """Flowtron at full width (``FlowtronConfig()``): the train step at
+    bench.py:614-673's shape, 96 × 128 random tokens × 384 N(0, 1) frames,
+    full lengths, dropout on, the CLI's Adam, f32 (TF32 off) and ``--amp``
+    (the ``[96, 384, 128, 640]`` attention energies of each flow held for
+    the backward); then serving: 8 × 128 random tokens through ``infer`` on
+    1000 frames of z (σ 0.8; the gate bias at −50, so no row stops), then
+    HiFi-GAN v1 on the 8 × 1000 frames (92.88 s of audio), as an RTF, f32 and
+    bf16, each with a profiler split and peak memory."""
+    from neuraltexttospeech_torch.cli.flowtron_train import make_loss_fn
+    from neuraltexttospeech_torch.cli.hifigan_infer import vocode
+    from neuraltexttospeech_torch.models.flowtron import Flowtron, FlowtronConfig
+    from neuraltexttospeech_torch.models.hifigan import Generator, HiFiGANConfig
+    from neuraltexttospeech_torch.train.harness import Trainer, TrainerConfig
+    from neuraltexttospeech_torch.train.state import OptimizerConfig
+
+    B, T_TEXT, T_MEL = 96, 128, 384
+    batch = {k: torch.as_tensor(v, device=device) for k, v in flowtron_batch(
+        np.random.default_rng(91), B, T_TEXT, T_MEL, 185, [T_TEXT] * B, [T_MEL] * B).items()}
+    opt = OptimizerConfig(learning_rate=1e-4, grad_clip_norm=1.0, beta2=0.999, eps=1e-8)
+    out = {}
+    for amp in (False, True):
+        torch.manual_seed(0)
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(make_loss_fn(), Flowtron(FlowtronConfig(dtype=torch.bfloat16 if amp
+                                                                  else None)),
+                          TrainerConfig(optimizer=opt), device)
+        mode = "bf16 (--amp)" if amp else "f32 (TF32 off)"
+        out["step", amp] = step_timing(
+            torch, trainer, batch, f"Flowtron train step {mode}, full width, dropout on: batch "
+            f"{B} x {T_TEXT} tokens x {T_MEL} frames", card, B * T_MEL)
+        log(f"  host ({mode}): " + host_summary())
+        del trainer
+        torch.cuda.empty_cache()
+
+    torch.manual_seed(1)
+    weights = random_init_(Flowtron(FlowtronConfig()).to(device), 92, device).state_dict()
+    with torch.no_grad():
+        weights["flows.1.gate_layer.bias"].fill_(-50.0)
+    gen = random_init_(Generator(HiFiGANConfig.v1()).to(device).eval(), 4, device)
+    rng = np.random.default_rng(93)
+    text = torch.as_tensor(rng.integers(1, 185, (8, T_TEXT)), dtype=torch.int32, device=device)
+    lens = torch.full((8,), T_TEXT, dtype=torch.int32, device=device)
+    speaker = torch.zeros(8, dtype=torch.int32, device=device)
+    z = torch.randn((8, 1000, 80), generator=torch.Generator(device=device).manual_seed(94),
+                    device=device) * 0.8
+    for amp in (False, True):
+        dtype = torch.bfloat16 if amp else None
+        model = Flowtron(FlowtronConfig(dtype=dtype)).to(device).eval()
+        model.load_state_dict(weights)
+
+        def run():
+            with torch.inference_mode():
+                mel, gate, _ = model.infer(z, speaker, text, lens)
+            return gate, vocode(gen, mel.float(), dtype)
+
+        wall, walls, _, (gate, audio) = timed_calls(torch, run, 3)
+        if (torch.sigmoid(gate.float()) > 0.5).any() or not torch.isfinite(audio).all():
+            raise RuntimeError(f"Flowtron → wav bench: a gate fired or the audio is not finite")
+        frames = 8 * 1000
+        audio_s = frames * HOP / SR
+        mode = "bf16 (--amp)" if amp else "f32 (TF32 off)"
+        log(f"flowtron2wav {mode}: full-width Flowtron (2 flows x 1000 frames) + HiFi-GAN v1, "
+            f"batch 8 x {T_TEXT} tokens, {frames} frames = {audio_s:.3f} s audio: wall "
+            f"{wall:.4f} s (runs {runs(walls)} ms) = RTF {wall / audio_s:.3e}; peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+        log(f"  trace ({mode}): " + trace_summary(torch, run, wall))
+        log(f"  host ({mode}): " + host_summary())
+        out["serve", amp] = wall
+    return out
 
 
 def main():
@@ -2834,6 +3143,8 @@ def main():
         fs2_b1 = phase_fastspeech2_cli(torch, device, smi)
         talknet_b1 = phase_talknet_cli(torch, device, smi)
         t2_b1 = phase_tacotron2_cli(torch, device, smi)
+        fl_b1 = phase_flowtron_cli(torch, device, smi)
+        tools_mas = phase_tools_cli(torch, device, smi)
         # launches per step on the training paths (B1 and B2: the GAN step,
         # f32 and bf16; MAS: the FastPitch step, and the Grad-TTS step's
         # checked equal); serving's and dataset prep's B1 counts are checked
@@ -2846,12 +3157,15 @@ def main():
                                f"FastPitch step {mas['launches']}")
         log(f"B1 launches: serving path {serving}, GAN training path {train['b1']} (bf16 "
             f"{train_bf16['b1']}), FastPitch dataset prep {fastpitch['b1_prep']}, FastSpeech 2 "
-            f"prep {fs2_b1}, Tacotron 2 prep {t2_b1}; B2 launches: GAN training f32 {train['b2']}, bf16 "
+            f"prep {fs2_b1}, Tacotron 2 prep {t2_b1}, Flowtron prep {fl_b1}; B2 launches: GAN "
+            f"training f32 {train['b2']}, bf16 "
             f"{train_bf16['b2']}; MAS launches: FastPitch training f32 "
             f"{fastpitch['f32']['mas']}, bf16 {fastpitch['bf16']['mas']}, Grad-TTS training "
             f"f32 {gradtts['f32']['mas']}, bf16 {gradtts['bf16']['mas']} (3 steps and 3 "
-            f"validation batches each); B1 launches per DiffWave training batch {diffwave_b1}, "
-            f"TalkNet 2 ASR training {talknet_b1} (3 epochs of 16 utterances)")
+            f"validation batches each), "
+            + ", ".join(f"{k} {v}" for k, v in tools_mas.items())
+            + f" (16 utterances in 2 batches each); B1 launches per DiffWave training batch "
+            f"{diffwave_b1}, TalkNet 2 ASR training {talknet_b1} (3 epochs of 16 utterances)")
         phase_reference(torch, device)
         phase_gan_reference(torch, device)
         phase_fastpitch_reference(torch, device)
@@ -2861,6 +3175,7 @@ def main():
         phase_fastspeech2_reference(torch, device)
         phase_talknet_reference(torch, device)
         phase_tacotron2_reference(torch, device)
+        phase_flowtron_reference(torch, device)
         phase_timing(torch, device, smi)
         phase_train_timing(torch, train["trainer"], smi)
         phase_train_timing(torch, train_bf16["trainer"], smi)
@@ -2874,6 +3189,7 @@ def main():
             phase_fastspeech2_train_timing(torch, device, smi, amp)
         phase_talknet_timing(torch, device, smi)
         phase_tacotron2_timing(torch, device, smi)
+        phase_flowtron_timing(torch, device, smi)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(json.dumps({"kernels": [b1, b2, b2_bf16, mas]}))

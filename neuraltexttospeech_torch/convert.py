@@ -20,6 +20,8 @@ once converted with ``np.asarray``; nothing here imports flax. Mappings:
   ``ii/if/ig/io [in, H]`` → ``weight_ih [4H, in]`` and the hidden kernels
   ``hi/hf/hg/ho [H, H]`` → ``weight_hh [4H, H]``, stacked in gate order, their
   biases → ``bias_hh [4H]`` (``nn/rnn.py::LSTMCell``).
+- Flowtron's ``MaskedInstanceNorm`` ``scale``/``bias`` → its affine
+  ``weight``/``bias`` (parameters, not BatchNorm statistics).
 - BatchNorm ``scale``/``bias`` → ``weight``/``bias``, and its
   ``batch_stats`` ``mean``/``var`` → the ``running_mean``/``running_var``
   buffers (``nn/layers.py::BatchNorm``). A depthwise conv's kernel ``[K, 1,
@@ -52,7 +54,7 @@ import torch
 __all__ = ["fastpitch_from_flax", "fastpitch_train_from_flax", "generator_from_flax",
            "fold_weight_norm", "hifigan_train_from_flax", "diffwave_from_flax",
            "gradtts_from_flax", "fastspeech2_from_flax", "quartznet_from_flax",
-           "talknet_from_flax", "tacotron2_from_flax"]
+           "talknet_from_flax", "tacotron2_from_flax", "flowtron_from_flax"]
 
 _WN_EPS = 1e-12
 _WN = ".parametrizations.weight."
@@ -552,6 +554,13 @@ def _lstm(sd, key, r: _Reader, *path):
     sd[f"{key}.bias_hh"] = _t(np.concatenate([r.pop(*path, f"h{g}", "bias") for g in gates]))
 
 
+def _bilstm(sd, key, r: _Reader, *path):
+    """flax's pair of ``OptimizedLSTMCell``s (forward ``_0``, backward ``_1``)
+    → ``nn/rnn.py::BiLSTM`` under ``key``."""
+    _lstm(sd, f"{key}.fwd", r, *path, "OptimizedLSTMCell_0")
+    _lstm(sd, f"{key}.bwd", r, *path, "OptimizedLSTMCell_1")
+
+
 def tacotron2_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
     """flax ``Tacotron2`` variables ``{"params", "batch_stats"}`` →
     ``models.tacotron2.Tacotron2`` state dict (BatchNorm buffers and the LSTM
@@ -564,8 +573,7 @@ def tacotron2_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
         for i in range(r.count(node, prefix="Conv")):
             _conv(sd, f"{part}.convs.{i}", r, node, f"Conv_{i}")
             _batch_norm(sd, f"{part}.norms.{i}", r, stats, node, f"BatchNorm_{i}")
-    _lstm(sd, "encoder.lstm.fwd", r, "encoder", "OptimizedLSTMCell_0")
-    _lstm(sd, "encoder.lstm.bwd", r, "encoder", "OptimizedLSTMCell_1")
+    _bilstm(sd, "encoder.lstm", r, "encoder")
     for i in range(2):
         _dense(sd, f"cell.prenet.layers.{i}", r, "cell", "prenet", f"Dense_{i}")
     for name in ("attention_rnn", "decoder_rnn"):
@@ -580,4 +588,43 @@ def tacotron2_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
     _dense(sd, "cell.gate_layer", r, "cell", "gate_layer")
     r.finish()
     stats.finish()
+    return sd
+
+
+def _conv_norms(sd, key, r: _Reader, node: str):
+    for i in range(r.count(node, prefix="Conv")):
+        _conv(sd, f"{key}.convs.{i}", r, node, f"Conv_{i}")
+        _layer_norm(sd, f"{key}.norms.{i}", r, node, f"MaskedInstanceNorm_{i}")
+
+
+def flowtron_from_flax(params: dict) -> Dict[str, torch.Tensor]:
+    """flax ``Flowtron`` params → ``models.flowtron.Flowtron`` state dict
+    (the mel encoder and mixture head when the tree has them). Raises on
+    any leaf it does not consume."""
+    r = _Reader(_plain(_params(params)))
+    sd: Dict[str, torch.Tensor] = {
+        "speaker_embedding.weight": _t(r.pop("speaker_embedding", "embedding")),
+        "encoder.embed.weight": _t(r.pop("encoder", "Embed_0", "embedding"))}
+    _conv_norms(sd, "encoder", r, "encoder")
+    _bilstm(sd, "encoder.lstm", r, "encoder")
+    k = 0
+    while f"flows_{k}" in r.tree:
+        flow, key = f"flows_{k}", f"flows.{k}"
+        _lstm(sd, f"{key}.attention_cell", r, flow, "attention_cell")
+        for name in ("query_layer", "key_layer", "value_layer", "v"):
+            _dense(sd, f"{key}.attention_layer.{name}", r, flow, "attention_layer", name)
+        for i in range(r.count(flow, prefix="decoder_cells")):
+            _lstm(sd, f"{key}.decoder_cells.{i}", r, flow, f"decoder_cells_{i}")
+        for name in ("dense1", "dense2", "affine_out", "gate_layer"):
+            if name in r.node(flow):
+                _dense(sd, f"{key}.{name}", r, flow, name)
+        k += 1
+    if "mel_encoder" in r.tree:
+        _conv_norms(sd, "mel_encoder", r, "mel_encoder")
+        _bilstm(sd, "mel_encoder.lstm", r, "mel_encoder")
+        _dense(sd, "mel_encoder.dense", r, "mel_encoder", "Dense_0")
+        for i, name in enumerate(("prob", "mean", "log_var")):
+            if f"Dense_{i}" in r.node("gaussian_mixture"):
+                _dense(sd, f"gaussian_mixture.{name}", r, "gaussian_mixture", f"Dense_{i}")
+    r.finish()
     return sd

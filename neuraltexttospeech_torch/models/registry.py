@@ -26,6 +26,7 @@ import torch
 from .diffwave import DiffWave, DiffWaveConfig
 from .fastpitch import FastPitch, FastPitchConfig
 from .fastspeech2 import FastSpeech2, FastSpeech2Config
+from .flowtron import Flowtron, FlowtronConfig
 from .gradtts import GradTTS, GradTTSConfig
 from .hifigan import Generator, HiFiGANConfig
 from .tacotron2 import Tacotron2, Tacotron2Config
@@ -38,12 +39,12 @@ __all__ = ["CONFIG_REGISTRY", "MODEL_REGISTRY", "config_to_dict", "config_from_d
 MODEL_REGISTRY: Dict[str, type] = {"FastPitch": FastPitch, "HiFiGAN": Generator,
                                    "DiffWave": DiffWave, "GradTTS": GradTTS,
                                    "FastSpeech2": FastSpeech2, "QuartzNet": QuartzNet,
-                                   "Tacotron2": Tacotron2}
+                                   "Tacotron2": Tacotron2, "Flowtron": Flowtron}
 CONFIG_REGISTRY: Dict[str, type] = {"FastPitch": FastPitchConfig, "HiFiGAN": HiFiGANConfig,
                                     "DiffWave": DiffWaveConfig, "GradTTS": GradTTSConfig,
                                     "FastSpeech2": FastSpeech2Config,
                                     "QuartzNet": QuartzNetConfig, "TalkNet2": TalkNet2Config,
-                                    "Tacotron2": Tacotron2Config}
+                                    "Tacotron2": Tacotron2Config, "Flowtron": FlowtronConfig}
 WEIGHTS_FILE = "model.pt"
 
 

@@ -39,7 +39,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from ..nn.layers import BatchNorm, Conv1d, Linear, dropout, same_padding
+from ..nn.layers import BatchNorm, Conv1d, Linear, dropout, same_padding, softmax
 from ..nn.precision import compute_dtype
 from ..nn.rnn import BiLSTM, LSTMCell
 from ..utils.masking import mask_from_lens
@@ -89,14 +89,6 @@ class Tacotron2Output(NamedTuple):
     mel_lengths: Optional[torch.Tensor] = None  # inference only
 
 
-def _softmax(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softmax`` over the last axis: ``exp(x − max)`` in x's type
-    (the max without gradient), divided by its sum taken in f32 and cast
-    back."""
-    e = torch.exp(x - x.amax(-1, keepdim=True).detach())
-    return e / e.float().sum(-1, keepdim=True).to(e.dtype)
-
-
 class Prenet(nn.Module):
     """2 × (Dense without bias → ReLU → dropout 0.5)."""
 
@@ -144,7 +136,7 @@ class Attention(nn.Module):
         energies = self.v(torch.tanh(self.query_layer(query)[:, None, :]
                                      + self.location_layer(weights_cat)
                                      + processed_memory))[..., 0]
-        weights = _softmax(torch.where(mask, energies, _NEG))
+        weights = softmax(torch.where(mask, energies, _NEG))
         dtype = torch.promote_types(weights.dtype, memory.dtype)
         context = torch.bmm(weights[:, None, :].to(dtype), memory.to(dtype))[:, 0]
         return context, weights

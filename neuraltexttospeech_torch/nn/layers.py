@@ -33,7 +33,7 @@ from .precision import current, promote
 
 __all__ = ["Conv1d", "ConvTranspose1d", "Conv2d", "ConvTranspose2d", "Linear", "Embedding",
            "LayerNorm", "GroupNorm", "BatchNorm", "ConvNorm",
-           "ConvReLUNorm", "LN_EPS", "same_padding", "dropout", "promoted_conv"]
+           "ConvReLUNorm", "LN_EPS", "same_padding", "dropout", "promoted_conv", "softmax"]
 
 LN_EPS = 1e-3
 
@@ -57,6 +57,14 @@ def dropout(x: torch.Tensor, p: float,
         return torch.zeros_like(x)
     keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` over the last axis: ``exp(x − max)`` in x's type
+    (the max without gradient), divided by its sum taken in f32 and cast
+    back (JAX sums bf16 in f32)."""
+    e = torch.exp(x - x.amax(-1, keepdim=True).detach())
+    return e / e.float().sum(-1, keepdim=True).to(e.dtype)
 
 
 def promoted_conv(conv, x: torch.Tensor, weight: torch.Tensor, bias, *args, **kwargs):

@@ -20,6 +20,9 @@ Flowtron use them).
   flipped within its own length (:func:`flip_sequences`), run forward and
   flipped back, so the backward direction starts at the row's last valid
   token.
+- :func:`run_lstm` is ``nn.RNN(cell)(x)`` without lengths, Flowtron's
+  density-pass LSTM: on the card one cuDNN call over the whole padded
+  buffer (``torch.lstm``, again with a zero input bias), on the CPU the loop.
 - :class:`BiLSTM` is the encoder's pair of directions. On the card it runs
   both through cuDNN over a packed sequence (``torch.lstm`` with a zero
   input bias and flax's hidden bias), which gives the loop's values at the
@@ -28,6 +31,7 @@ Flowtron use them).
 
 from __future__ import annotations
 
+import contextlib
 import math
 import warnings
 from typing import Optional, Tuple
@@ -37,7 +41,7 @@ from torch import nn
 from torch.nn import functional as F
 from torch.nn.utils.rnn import PackedSequence, pack_padded_sequence, pad_packed_sequence
 
-__all__ = ["LSTMCell", "run_rnn", "flip_sequences", "BiLSTM"]
+__all__ = ["LSTMCell", "run_rnn", "run_lstm", "flip_sequences", "BiLSTM"]
 
 Carry = Tuple[torch.Tensor, torch.Tensor]
 
@@ -119,6 +123,37 @@ def run_rnn(cell: LSTMCell, x: torch.Tensor, lengths: Optional[torch.Tensor] = N
     return y
 
 
+def _cudnn_weights(cells):
+    """``torch.lstm``'s flat weights for ``cells`` (one a direction): flax's
+    kernels, a zero input bias and flax's hidden bias."""
+    weights = []
+    for cell in cells:
+        weights += [cell.weight_ih, cell.weight_hh, torch.zeros_like(cell.bias_hh), cell.bias_hh]
+    return weights
+
+
+@contextlib.contextmanager
+def _separate_weights():
+    """Silence cuDNN's note that the weights are separate tensors, not one
+    chunk (it copies them into one for each call)."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*contiguous chunk of memory.*")
+        yield
+
+
+def run_lstm(cell: LSTMCell, x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.RNN(cell)(x)`` over ``x [B, T, in]`` from zero carries, every
+    step of the padded buffer: ``[B, T, hidden]``. A CUDA input in f32 (the
+    cell without a ``dtype``) runs as one cuDNN call; otherwise the loop."""
+    dtype = cell.dtype or torch.promote_types(x.dtype, cell.weight_ih.dtype)
+    if not x.is_cuda or dtype != torch.float32:
+        return run_rnn(cell, x)
+    zeros = torch.zeros(1, x.shape[0], cell.hidden_size, device=x.device)
+    with _separate_weights():
+        return torch.lstm(x.float(), (zeros, zeros), _cudnn_weights([cell]), True, 1, 0.0,
+                          torch.is_grad_enabled(), False, True)[0]
+
+
 class BiLSTM(nn.Module):
     """The two directions of a bidirectional LSTM, concatenated: ``x [B, T,
     in]`` → ``[B, T, 2·hidden]``. Values past each row's length are the
@@ -139,15 +174,11 @@ class BiLSTM(nn.Module):
         dtype = torch.promote_types(x.dtype, self.fwd.weight_ih.dtype)
         packed = pack_padded_sequence(x.to(dtype), lengths.cpu().long(), batch_first=True,
                                       enforce_sorted=False)
-        weights = []
-        for cell in (self.fwd, self.bwd):
-            weights += [cell.weight_ih, cell.weight_hh, torch.zeros_like(cell.bias_hh),
-                        cell.bias_hh]
         zeros = torch.zeros(2, x.shape[0], self.fwd.hidden_size, device=x.device, dtype=dtype)
-        with warnings.catch_warnings():  # the weights are separate tensors, not one chunk
-            warnings.filterwarnings("ignore", message=".*contiguous chunk of memory.*")
-            data, _, _ = torch.lstm(packed.data, packed.batch_sizes, (zeros, zeros), weights,
-                                    True, 1, 0.0, self.training, True)
+        with _separate_weights():
+            data, _, _ = torch.lstm(packed.data, packed.batch_sizes, (zeros, zeros),
+                                    _cudnn_weights((self.fwd, self.bwd)), True, 1, 0.0,
+                                    self.training, True)
         out = PackedSequence(data, packed.batch_sizes, packed.sorted_indices,
                              packed.unsorted_indices)
         return pad_packed_sequence(out, batch_first=True, total_length=x.shape[1])[0]

@@ -45,7 +45,9 @@ def test_package_imports_without_jax():
     assert n_modules >= 20  # every submodule was imported
     for name in ("models.talknet", "data.asr_dataset", "cli.talknet_train",
                  "cli.talknet_infer", "nn.rnn", "models.tacotron2", "models.tacotron2_train",
-                 "cli.tacotron2_prepare_dataset", "cli.tacotron2_train", "cli.tacotron2_infer"):
+                 "cli.tacotron2_prepare_dataset", "cli.tacotron2_train", "cli.tacotron2_infer",
+                 "models.flowtron", "cli.flowtron_train", "cli.flowtron_infer", "cli.dump_mels",
+                 "cli.align_from_fastpitch", "cli.export"):
         assert f"neuraltexttospeech_torch.{name}" in out.stdout.split(), name
 
 
