@@ -109,6 +109,17 @@ Phases, each raising on failure:
    tokens × 384 frames and noise → mel → wav through 2 flows × 1000 frames
    and v1 at 8 × 128 tokens, each f32 and ``--amp``.
 
+9. Parallelism (``parallel/``): NCCL at world size 1 joined in this
+   process, the full-width FastPitch ``Trainer`` step (ragged lengths,
+   dropout on; MAS ×1) and the v1 GAN step (B1 ×3, B2 ×90) on a one-rank
+   data-parallel mesh held to the plain one-card step (metrics rtol 2e-5,
+   parameters atol 3e-5) and timed beside it, with the GAN step's idle
+   share; two gloo processes with both ranks on the card
+   (``tools/torch_parallel_check.py``): DP = 2 FastPitch, TalkNet 2
+   (BatchNorm) and GAN steps and TP = 2 FastPitch held to the one-process
+   step, with each rank's B1, B2 and MAS launches; the host-fed FastPitch
+   CLI loop (``tools/torch_cli_throughput.py``, 2 epochs × 8 steps).
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
@@ -3108,6 +3119,194 @@ def phase_flowtron_timing(torch, device, card):
     return out
 
 
+def _state_arrays(modules):
+    return {f"{i}.{k}": v.detach().float().cpu() for i, m in enumerate(modules)
+            for k, v in m.state_dict().items()}
+
+
+def _held_to_plain(label, m_plain, m_dp, s_plain, s_dp):
+    """The data-parallel step's metrics (rtol 2e-5) and parameters and
+    buffers (atol 3e-5) against the plain one-card step's; returns the worst
+    metric's relative error and the worst parameter's difference."""
+    rel = max(abs(m_dp[k] - v) / max(abs(v), 1e-12) for k, v in m_plain.items())
+    for k, v in m_plain.items():
+        np.testing.assert_allclose(m_dp[k], v, rtol=2e-5, atol=1e-7, err_msg=f"{label}: {k}")
+    worst = 0.0
+    for k, v in s_plain.items():
+        np.testing.assert_allclose(s_dp[k].numpy(), v.numpy(), rtol=0, atol=3e-5,
+                                   err_msg=f"{label}: {k}")
+        worst = max(worst, (s_dp[k] - v).abs().max().item())
+    return rel, worst
+
+
+def phase_parallel(torch, device, card):
+    """Data and tensor parallelism (``parallel/``) on the one card.
+
+    (a) NCCL at world size 1, joined through ``initialize_distributed`` in
+    this process: the FastPitch ``Trainer`` step at the ``bench.py`` shape
+    (16 × 128 tokens × 768 frames, ragged lengths, dropout on) and the v1
+    ``HiFiGANTrainer`` step (16 × 8192), each with a one-rank data-parallel
+    mesh, held to the plain one-card step (metrics rtol 2e-5, parameters
+    atol 3e-5; both compared steps with cuDNN's deterministic algorithms),
+    with MAS ×1 and B1 ×3, B2 ×90 counted in the mesh's step;
+    then both steps' walls, plain and on the mesh in 4 turns, and the GAN
+    step's idle share in both. (b) Two processes joined by gloo, both ranks on
+    ``cuda:0`` (NCCL refuses two ranks on one card):
+    ``tools/torch_parallel_check.py`` holds a DP = 2 FastPitch step (ragged,
+    dropout on), a DP = 2 TalkNet 2 spectrogram step (BatchNorm), a DP = 2
+    GAN step of a small generator with the full MPD and MSD and a TP = 2
+    2-head (and 1-head) FastPitch against the one-process step, and counts
+    each rank's B1, B2 and MAS launches. (c) The host-fed FastPitch loop,
+    ``tools/torch_cli_throughput.py`` at 2 epochs × 8 steps."""
+    import socket
+
+    import torch.distributed as dist
+    from neuraltexttospeech_torch.cli.fastpitch_train import make_loss_fn
+    from neuraltexttospeech_torch.models.fastpitch import FastPitch, FastPitchConfig
+    from neuraltexttospeech_torch.models.fastpitch_loss import FastPitchLossConfig
+    from neuraltexttospeech_torch.models.hifigan import HiFiGANConfig
+    from neuraltexttospeech_torch.models.hifigan_gan import HiFiGANTrainer
+    from neuraltexttospeech_torch.parallel import initialize_distributed, make_mesh
+    from neuraltexttospeech_torch.parallel.mesh import FlatGrads
+    from neuraltexttospeech_torch.train.harness import Trainer, TrainerConfig
+    from tools import torch_parallel_check
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    b1, b2, mas = counted_kernels()
+    t_phase = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    if not initialize_distributed(f"127.0.0.1:{port}", 1, 0, device=device):
+        raise RuntimeError("initialize_distributed did not join the one-rank run")
+    try:
+        if dist.get_backend() != "nccl":
+            raise RuntimeError(f"the card's process group runs {dist.get_backend()}, not NCCL")
+        mesh = make_mesh(1)
+        B, T_TEXT, T_MEL = 16, 128, 768
+        text_lens = [T_TEXT - 4 * i for i in range(B)]
+        mel_lens = [T_MEL - 24 * i for i in range(B)]
+        batch = {k: torch.as_tensor(v, device=device) for k, v in fastpitch_batch(
+            5, B, T_TEXT, T_MEL, 148, text_lens, mel_lens).items()}
+        gan_batch = {"audio": torch.as_tensor((np.random.default_rng(6).standard_normal(
+            (16, 8192, 1)) * 0.1).astype(np.float32), device=device)}
+        steps, plain_ms = {}, {}
+        for what in ("fastpitch", "gan"):
+            for m in (None, mesh):
+                if what == "fastpitch":
+                    torch.manual_seed(0)
+                    trainer = Trainer(make_loss_fn(FastPitchLossConfig(), 1),
+                                      FastPitch(FastPitchConfig()), TrainerConfig(), device,
+                                      mesh=m)
+                    data, modules = batch, lambda t: [t.model]
+                else:
+                    trainer = HiFiGANTrainer(HiFiGANConfig.v1(), device, mesh=m)
+                    data, modules = gan_batch, lambda t: [t.gen, t.mpd, t.msd]
+                for fn in (b1, b2, mas):
+                    fn.launches = 0
+                # cuDNN's default backward algorithms sum in a run-dependent
+                # order, and Adam's first step moves a parameter whose
+                # gradient is near zero by up to lr whatever that gradient's
+                # size (one element of the v1 generator's 2.1M moved 4.96e-5
+                # between two plain-vs-mesh runs): the compared steps run
+                # cuDNN's deterministic algorithms, the timed ones its defaults
+                torch.backends.cudnn.deterministic = True
+                try:
+                    metrics = {k: float(v) for k, v in trainer.train_step(data).items()}
+                finally:
+                    torch.backends.cudnn.deterministic = False
+                counts = (b1.launches, b2.launches, mas.launches)
+                steps[what, m is not None] = (trainer, data, metrics,
+                                              _state_arrays(modules(trainer)), counts)
+            (_, _, m_plain, s_plain, _), (_, _, m_dp, s_dp, c_dp) = (
+                steps[what, False], steps[what, True])
+            want = (0, 0, 1) if what == "fastpitch" else (3, b2_launches_per_step(8192), 0)
+            if c_dp != want:
+                raise RuntimeError(f"{what} step on the mesh launched B1, B2, MAS {c_dp}, "
+                                   f"not {want}")
+            rel, worst = _held_to_plain(what, m_plain, m_dp, s_plain, s_dp)
+            log(f"parallel (a): {what} step, NCCL world size 1, on a 1-rank mesh vs plain: "
+                f"max metric rel err {rel:.2e}, max |param/buffer diff| {worst:.2e}; B1, B2, MAS "
+                f"launches in the mesh's step {c_dp}")
+            walls, reduce_host = {}, []
+            all_reduce = FlatGrads.all_reduce_
+
+            def timed_reduce(*args, **kwargs):  # the host's time in the flat all-reduce
+                t = time.perf_counter()
+                out = all_reduce(*args, **kwargs)
+                reduce_host.append(time.perf_counter() - t)
+                return out
+
+            FlatGrads.all_reduce_ = timed_reduce
+            try:
+                for dp in (False, True, True, False):
+                    trainer, data = steps[what, dp][:2]
+                    w = timed_calls(torch, lambda: trainer.train_step(data), 3)[1]
+                    walls.setdefault(dp, []).extend(w)
+            finally:
+                FlatGrads.all_reduce_ = all_reduce
+            plain_ms[what] = float(np.median(walls[False])) * 1e3
+            n_grads = sum(p.numel() for mod in modules(steps[what, True][0])
+                          for p in mod.parameters())
+            log(f"parallel (a): {what} step wall, plain / 1-rank mesh in 4 turns of 3: median "
+                f"{np.median(walls[False]) * 1e3:.2f} / {np.median(walls[True]) * 1e3:.2f} ms "
+                f"(runs {runs(walls[False])} / {runs(walls[True])}); the host in the mesh "
+                f"step's one all-reduce of {n_grads:,} gradients: median "
+                f"{np.median(reduce_host) * 1e3:.2f} ms [{card}]")
+            if what == "gan":
+                for dp in (False, True):
+                    trainer, data = steps[what, dp][:2]
+                    log(f"  trace (GAN step, {'1-rank mesh' if dp else 'plain'}): "
+                        + trace_summary(torch, lambda: trainer.train_step(data),
+                                        float(np.median(walls[dp]))))
+                    log(f"  host: " + host_summary())
+            for dp in (False, True):
+                del steps[what, dp]
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    log(f"parallel (a): {time.perf_counter() - t_phase:.1f} s")
+
+    t0 = time.perf_counter()
+    results, _ = torch_parallel_check.run(2, ["fastpitch", "talknet", "gan", "tp"],
+                                          device="cuda", backend="gloo", timeout=300)
+    for r in results:
+        if not torch_parallel_check.passed(r):
+            raise RuntimeError(f"parallel (b): a sharded step missed its tolerance: {r}")
+        want = {"fastpitch": {"B1": 0, "B2": 0, "MAS": 1},
+                "gan": {"B1": 3, "B2": b2_launches_per_step(256), "MAS": 0}}.get(r["case"])
+        if want is not None and r["launches"] != want:
+            raise RuntimeError(f"parallel (b): rank {r['rank']}'s {r['case']} step launched "
+                               f"{r['launches']}, not {want}")
+    if len(results) != 10:
+        raise RuntimeError(f"parallel (b): {len(results)} results, not 10")
+    log(f"parallel (b): 2 gloo processes on cuda:0 ({time.perf_counter() - t0:.1f} s), each "
+        f"case vs the one-process step as ratios to the tolerances (≤ 1 passes): " + "; ".join(
+            f"{r['case']} rank {r['rank']} mesh {r['mesh']}: loss {r['loss']:.2e} grads "
+            f"{r['grads']:.2e} params {r['params']:.2e} buffers {r['buffers']:.2e} (spread "
+            f"over ranks {r['buffers_rank_spread']:.1e}) launches {r['launches']}"
+            for r in results))
+
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-u", str(ROOT / "tools" / "torch_cli_throughput.py"), "fastpitch",
+         "--items", "4", "--list-repeat", "32", "--batch-size", "16", "--epochs", "2",
+         "--steps-per-epoch", "8", "--precision", "f32", "--workdir",
+         str(WORK / "cli_throughput"), "--device-ms", f"{plain_ms['fastpitch']:.1f}"],
+        capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"torch_cli_throughput failed:\n{out.stdout[-3000:]}"
+                           f"{out.stderr[-3000:]}")
+    tail = [line for line in out.stdout.splitlines()
+            if line.startswith(("fastpitch (f32) CLI loop", "steady state", "step on the card",
+                                "prepared", "epoch"))]
+    log(f"parallel (c): host-fed FastPitch CLI loop (tools/torch_cli_throughput.py, 4 wavs of "
+        f"640-832 frames listed 32 times, batch 16, 2 epochs x 8 steps, f32; "
+        f"{time.perf_counter() - t0:.1f} s) [{card}]: " + " | ".join(tail))
+    log(f"parallel: the phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     import torch
 
@@ -3190,6 +3389,7 @@ def main():
         phase_talknet_timing(torch, device, smi)
         phase_tacotron2_timing(torch, device, smi)
         phase_flowtron_timing(torch, device, smi)
+        phase_parallel(torch, device, smi)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(json.dumps({"kernels": [b1, b2, b2_bf16, mas]}))

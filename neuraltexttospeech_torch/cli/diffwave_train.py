@@ -3,7 +3,7 @@
 Port of ``diffwave/train.py``: random ``--crop-mel-frames`` crops of the
 wavs (``data/mel_dataset.py::VocoderDataset``, whose mels are computed on
 the training device: kernel B1 on the card, twice a batch) → the L1
-noise-prediction loss of ``models/diffwave.py`` → the generic one-card
+noise-prediction loss of ``models/diffwave.py`` → the generic
 :class:`~..train.harness.Trainer` with Adam (b1 0.9, b2 0.999, eps 1e-8)
 and optional global-norm clipping. f32 with TF32 off for cuBLAS and cuDNN,
 or with ``--amp`` in bf16 (f32 parameters, gradients and Adam state, as the
@@ -32,9 +32,9 @@ import torch
 from ..data.mel_dataset import VocoderDataset
 from ..models.diffwave import DiffWave, DiffWaveConfig, diffwave_loss
 from ..models.registry import save_model_config
+from ..parallel.distributed import launch
 from ..train.harness import Trainer, TrainerConfig
 from ..train.state import OptimizerConfig
-from ..utils.device import resolve_device
 
 
 def parse_args(argv=None):
@@ -82,7 +82,7 @@ def main(argv=None):
     floats), "val" (the last validation means), "steps" (run by this call),
     "seconds"}``."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device, mesh = launch(args.device, args.batch_size)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -111,10 +111,10 @@ def main(argv=None):
                       checkpoint_dir=str(out / "checkpoints"),
                       checkpoint_every=args.checkpoint_every_steps),
         device, serving=lambda: ("DiffWave", config, model.state_dict(), None),
-        dtype=torch.bfloat16 if args.amp else None)
+        dtype=torch.bfloat16 if args.amp else None, mesh=mesh)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"DiffWave: {n_params / 1e6:.2f}M params, {len(ds)} clips, "
-          f"{'bf16' if args.amp else 'f32'}, device {device}")
+          f"{'bf16' if args.amp else 'f32'}, device {device}, dp={mesh.n_data if mesh else 1}")
 
     position = (0, 0)  # (epoch, batches done in it)
     if args.resume:
@@ -149,8 +149,8 @@ def main(argv=None):
         steps += trainer.step - step0
         print(f"epoch {epoch}: " + " ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.items())))
         if val_ds is not None:
-            val = trainer.evaluate(loss_fn, trainer.device_iter(
-                val_ds.batches(args.batch_size, shuffle=False, drop_last=False)))
+            val = trainer.evaluate(
+                loss_fn, val_ds.batches(args.batch_size, shuffle=False, drop_last=False))
             print(f"epoch {epoch} val: "
                   + " ".join(f"{k}={v:.4f}" for k, v in sorted(val.items())))
         trainer.extra_state["position"] = (epoch + 1, 0)

@@ -2,7 +2,7 @@
 
 Port of ``fastpitch/train.py``: the prepared features (``fastpitch_prepare_dataset``)
 → bucketed batches → the training forward (aligner, MAS on the card through
-its CUDA kernel) and ``fastpitch_loss`` → the generic one-card
+its CUDA kernel) and ``fastpitch_loss`` → the generic
 :class:`~..train.harness.Trainer` with the optimizer of ``--optimizer``
 (clipping, accumulation, the noam schedule). f32 with TF32 off for cuBLAS
 and cuDNN, or with ``--amp`` in bf16 (f32 parameters, gradients and
@@ -35,9 +35,9 @@ from ..models.fastpitch import FastPitch, FastPitchConfig
 from ..models.fastpitch_loss import FastPitchLossConfig, fastpitch_loss
 from ..models.registry import save_model_config
 from ..ops.prior import beta_binomial_prior
+from ..parallel.distributed import launch
 from ..train.harness import Trainer, TrainerConfig
 from ..train.state import OptimizerConfig
-from ..utils.device import resolve_device
 
 
 def parse_args(argv=None):
@@ -118,7 +118,7 @@ def main(argv=None):
     """Train; returns ``{"trainer", "metrics" (the last epoch's means, as
     floats), "steps" (run by this call), "seconds"}``."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device, mesh = launch(args.device, args.batch_size)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -156,10 +156,10 @@ def main(argv=None):
         TrainerConfig(optimizer=opt_cfg, seed=args.seed,
                       checkpoint_dir=str(out / "checkpoints")),
         device, serving=lambda: ("FastPitch", config, model.state_dict(), frontend),
-        dtype=torch.bfloat16 if args.amp else None)
+        dtype=torch.bfloat16 if args.amp else None, mesh=mesh)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"FastPitch: {n_params / 1e6:.1f}M params, {len(train_ds)} train items, "
-          f"{'bf16' if args.amp else 'f32'}, device {device}")
+          f"{'bf16' if args.amp else 'f32'}, device {device}, dp={mesh.n_data if mesh else 1}")
 
     position = (0, 0)  # (epoch, batches done in it)
     if args.resume:
@@ -190,8 +190,8 @@ def main(argv=None):
         steps += trainer.step - step0
         print(f"epoch {epoch}: " + " ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.items())))
         if val_ds is not None:
-            val = trainer.evaluate(loss_fn, trainer.device_iter(
-                val_ds.batches(args.batch_size, shuffle=False, drop_last=False)))
+            val = trainer.evaluate(
+                loss_fn, val_ds.batches(args.batch_size, shuffle=False, drop_last=False))
             print(f"epoch {epoch} val: "
                   + " ".join(f"{k}={v:.4f}" for k, v in sorted(val.items())))
         trainer.extra_state["position"] = (epoch + 1, 0)

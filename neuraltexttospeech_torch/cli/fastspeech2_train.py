@@ -3,7 +3,7 @@
 Port of ``fastspeech2/train.py``: :class:`FS2Dataset` reads the prepared
 ``train.txt`` and per-utterance ``.npy`` files (``fastspeech2_prepare_dataset``),
 encoding the phones with the front end recorded in ``frontend.json`` → the
-teacher-forced forward and ``fastspeech2_loss`` → the generic one-card
+teacher-forced forward and ``fastspeech2_loss`` → the generic
 :class:`~..train.harness.Trainer` with Adam on the noam schedule (lr 1e-3,
 warm-up 4000, b2 0.98, eps 1e-9, global-norm clip 1.0). The config's bucket
 ranges come from ``stats.json``; ``--override key=value`` changes any field.
@@ -36,10 +36,10 @@ import torch
 from ..data.dataset import pad_to, round_up
 from ..models.fastspeech2 import FastSpeech2, FastSpeech2Config, fastspeech2_loss
 from ..models.registry import apply_overrides, save_model_config
+from ..parallel.distributed import launch
 from ..text.processing import TextProcessing
 from ..train.harness import Trainer, TrainerConfig
 from ..train.state import OptimizerConfig
-from ..utils.device import resolve_device
 
 
 def parse_args(argv=None):
@@ -143,7 +143,7 @@ def main(argv=None):
     floats), "val" (the last validation means), "steps" (run by this call),
     "seconds"}``."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device, mesh = launch(args.device, args.batch_size)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -170,10 +170,10 @@ def main(argv=None):
         TrainerConfig(optimizer=opt_cfg, seed=args.seed,
                       checkpoint_dir=str(out / "checkpoints")),
         device, serving=lambda: ("FastSpeech2", config, model.state_dict(), ds.frontend),
-        dtype=torch.bfloat16 if args.amp else None)
+        dtype=torch.bfloat16 if args.amp else None, mesh=mesh)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"FastSpeech2: {n_params / 1e6:.1f}M params, {len(ds)} items, "
-          f"{'bf16' if args.amp else 'f32'}, device {device}")
+          f"{'bf16' if args.amp else 'f32'}, device {device}, dp={mesh.n_data if mesh else 1}")
 
     position = (0, 0)  # (epoch, batches done in it)
     if args.resume:
@@ -204,8 +204,8 @@ def main(argv=None):
         steps += trainer.step - step0
         print(f"epoch {epoch}: " + " ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.items())))
         if val_ds is not None:
-            val = trainer.evaluate(loss_fn, trainer.device_iter(
-                val_ds.batches(args.batch_size, shuffle=False, drop_last=False)))
+            val = trainer.evaluate(
+                loss_fn, val_ds.batches(args.batch_size, shuffle=False, drop_last=False))
             print(f"epoch {epoch} val: "
                   + " ".join(f"{k}={v:.4f}" for k, v in sorted(val.items())))
         trainer.extra_state["position"] = (epoch + 1, 0)

@@ -6,7 +6,7 @@ computed on the training device: B1 on the card) → ``FastPitchDataset``
 (``english_cleaners``, no ARPAbet, no pitch or prior; bucketed by length,
 the order from ``--seed`` + epoch) → the density pass and
 :func:`~..models.flowtron.flowtron_loss` with the stop-gate targets ``pos ≥
-len − 1`` → the generic one-card :class:`~..train.harness.Trainer` with Adam
+len − 1`` → the generic :class:`~..train.harness.Trainer` with Adam
 (lr ``-lr``, β2 0.999, eps 1e-8, global-norm clip at 1.0). Each step's
 dropout stream comes from ``(seed, step)``.
 
@@ -39,9 +39,9 @@ from ..data.dataset import FastPitchDataset
 from ..models.flowtron import Flowtron, FlowtronConfig, flowtron_loss
 from ..models.registry import save_model_config
 from ..models.tacotron2_train import gate_targets
+from ..parallel.distributed import launch
 from ..train.harness import Trainer, TrainerConfig
 from ..train.state import OptimizerConfig
-from ..utils.device import resolve_device
 
 
 def parse_args(argv=None):
@@ -94,7 +94,7 @@ def main(argv=None):
     means), "val" (the last validation means), "steps" (run by this call),
     "seconds"}``."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device, mesh = launch(args.device, args.batch_size)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = pathlib.Path(args.output)
@@ -114,10 +114,11 @@ def main(argv=None):
     trainer = Trainer(loss_fn, model,
                       TrainerConfig(optimizer=opt_cfg, seed=args.seed,
                                     checkpoint_dir=str(out / "checkpoints")),
-                      device, serving=lambda: ("Flowtron", config, model.state_dict(), None))
+                      device, serving=lambda: ("Flowtron", config, model.state_dict(), None),
+                      mesh=mesh)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"Flowtron: {n_params / 1e6:.1f}M params, {len(ds)} items, "
-          f"{'bf16' if args.amp else 'f32'}, device {device}")
+          f"{'bf16' if args.amp else 'f32'}, device {device}, dp={mesh.n_data if mesh else 1}")
 
     position = (0, 0)  # (epoch, batches done in it)
     if args.resume:
@@ -147,8 +148,8 @@ def main(argv=None):
         steps += trainer.step - step0
         print(f"epoch {epoch}: " + " ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.items())))
         if val_ds is not None:
-            val = trainer.evaluate(loss_fn, trainer.device_iter(
-                val_ds.batches(args.batch_size, shuffle=False, drop_last=False)))
+            val = trainer.evaluate(
+                loss_fn, val_ds.batches(args.batch_size, shuffle=False, drop_last=False))
             print(f"epoch {epoch} val: " + " ".join(f"{k}={v:.4f}" for k, v in sorted(val.items())))
         trainer.extra_state["position"] = (epoch + 1, 0)
         if (epoch + 1) % max(args.epochs_per_checkpoint, 1) == 0:

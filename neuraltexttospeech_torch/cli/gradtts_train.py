@@ -6,7 +6,7 @@ through kernel B1 on the card) → bucketed batches whose text is
 interspersed with the blank id 148 and padded to a multiple of 16 tokens
 (:func:`prep_batch`) → ``GradTTS.compute_loss`` (MAS on the card through
 its CUDA kernel, the random ``--out-size`` segment, the score loss) → the
-generic one-card :class:`~..train.harness.Trainer` with Adam (lr 1e-4, b2
+generic :class:`~..train.harness.Trainer` with Adam (lr 1e-4, b2
 0.999, eps 1e-8, global-norm clip 1.0). f32 with TF32 off for cuBLAS and
 cuDNN, or with ``--amp`` in bf16 (f32 parameters, gradients and Adam state;
 the log-prior, MAS and the losses' targets in f32, as the JAX CLI's
@@ -36,10 +36,10 @@ import torch
 from ..data.dataset import FastPitchDataset
 from ..models.gradtts import GradTTS, GradTTSConfig
 from ..models.registry import save_model_config
+from ..parallel.distributed import launch
 from ..text.processing import intersperse
 from ..train.harness import Trainer, TrainerConfig
 from ..train.state import OptimizerConfig
-from ..utils.device import resolve_device
 
 N_BASE_SYMBOLS = 148  # len(symbols); the blank's id when --no-blank is not given
 
@@ -103,7 +103,7 @@ def main(argv=None):
     floats), "val" (the last validation means), "steps" (run by this call),
     "seconds"}``."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device, mesh = launch(args.device, args.batch_size)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -132,10 +132,10 @@ def main(argv=None):
         TrainerConfig(optimizer=opt_cfg, seed=args.seed,
                       checkpoint_dir=str(out / "checkpoints")),
         device, serving=lambda: ("GradTTS", config, model.state_dict(), None),
-        dtype=torch.bfloat16 if args.amp else None)
+        dtype=torch.bfloat16 if args.amp else None, mesh=mesh)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"GradTTS: {n_params / 1e6:.1f}M params, {len(ds)} items, "
-          f"{'bf16' if args.amp else 'f32'}, device {device}")
+          f"{'bf16' if args.amp else 'f32'}, device {device}, dp={mesh.n_data if mesh else 1}")
 
     position = (0, 0)  # (epoch, batches done in it)
     if args.resume:
@@ -167,7 +167,7 @@ def main(argv=None):
         steps += trainer.step - step0
         print(f"epoch {epoch}: " + " ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.items())))
         if val_ds is not None:
-            val = trainer.evaluate(loss_fn, trainer.device_iter(
+            val = trainer.evaluate(loss_fn, (
                 prep(b) for b in val_ds.batches(args.batch_size, shuffle=False,
                                                 drop_last=False)))
             print(f"epoch {epoch} val: "

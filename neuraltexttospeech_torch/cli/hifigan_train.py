@@ -2,7 +2,8 @@
 
 Port of ``hifigan/train.py``: a config (v1/v2/v3 or a reference
 ``config_v*.json``) → ``VocoderDataset`` crops → the 3-optimizer GAN step of
-``models/hifigan_gan.py`` on one card, f32 with TF32 off for cuBLAS and
+``models/hifigan_gan.py`` on one card (or data parallel under ``torchrun``:
+``parallel/distributed.py::launch``), f32 with TF32 off for cuBLAS and
 cuDNN, or with ``--amp`` in bf16 (f32 parameters, gradients and Adam
 state, as the JAX CLI's ``--amp``). The MSD's grouped convs run through
 kernel B2 (its f32 or bf16 form) unless the config's ``fast_grouped_convs``
@@ -34,12 +35,11 @@ import time
 import torch
 
 from ..data.mel_dataset import VocoderDataset
-from ..data.prefetch import prefetch
 from ..models.hifigan import HiFiGANConfig
 from ..models.hifigan_gan import HiFiGANTrainer
 from ..models.registry import save_model_config
+from ..parallel.distributed import launch
 from ..train.checkpoint import Checkpointer
-from ..utils.device import resolve_device
 
 
 def parse_args(argv=None):
@@ -88,14 +88,14 @@ def main(argv=None):
     """Train; returns ``{"trainer", "metrics" (last step's, as floats),
     "steps" (run by this call), "seconds"}``."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    config = load_config(args.config)
+    batch_size = args.batch_size or config.batch_size
+    device, mesh = launch(args.device, batch_size)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    config = load_config(args.config)
     out = pathlib.Path(args.output)
     save_model_config(out, "HiFiGAN", config)
-    batch_size = args.batch_size or config.batch_size
     ds = VocoderDataset(
         args.training_files, segment_size=config.segment_size, n_fft=config.n_fft,
         hop_size=config.hop_size, win_size=config.win_size, num_mels=config.num_mels,
@@ -104,11 +104,12 @@ def main(argv=None):
         seed=config.seed)
     steps_per_epoch = args.steps_per_epoch or max(len(ds) // batch_size, 1)
     trainer = HiFiGANTrainer(config, device, steps_per_epoch=steps_per_epoch,
-                             dtype=torch.bfloat16 if args.amp else None)
+                             dtype=torch.bfloat16 if args.amp else None, mesh=mesh)
     n_g = sum(p.numel() for p in trainer.gen.parameters())
     print(f"HiFi-GAN {args.config}: generator {n_g / 1e6:.1f}M params, {len(ds)} clips, "
           f"batch {batch_size}, MSD group impl {trainer.msd_group_impl}, "
-          f"{'bf16' if args.amp else 'f32'}, device {device}")
+          f"{'bf16' if args.amp else 'f32'}, device {device}, "
+          f"dp={mesh.n_data if mesh else 1}")
 
     ckpt = Checkpointer(out / "checkpoints", save_interval_steps=args.checkpoint_every_steps)
     # where the data order stands: (epoch, batches done in it), crop RNG state
@@ -138,7 +139,7 @@ def main(argv=None):
                 b["data_rng"] = ds.rng.bit_generator.state
                 yield b
 
-        for batch in prefetch(produce(), device):
+        for batch in trainer.device_iter(produce()):
             position, data_rng = batch.pop("position"), batch.pop("data_rng")
             metrics = trainer.train_step(batch)
             n += 1

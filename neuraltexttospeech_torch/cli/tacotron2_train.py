@@ -3,7 +3,7 @@
 Port of ``tacotron2/train.py``: the cached log-mels of
 ``tacotron2_prepare_dataset`` (a wav without one is computed on the training
 device: B1 on the card) → ``FastPitchDataset.batches`` (bucketed by length,
-the order from ``--seed`` + epoch) → the generic one-card
+the order from ``--seed`` + epoch) → the generic
 :class:`~..train.harness.Trainer` with ``models/tacotron2_train.py``'s loss
 and AdamW (weight decay 1e-6 on every parameter, global-norm clip at 1.0).
 Each step's dropout stream comes from ``(seed, step)``; the BatchNorms take
@@ -38,8 +38,8 @@ from ..data.dataset import FastPitchDataset
 from ..models.registry import apply_overrides, save_model_config
 from ..models.tacotron2 import Tacotron2, Tacotron2Config
 from ..models.tacotron2_train import loss_fn, optimizer_config
+from ..parallel.distributed import launch
 from ..train.harness import Trainer, TrainerConfig
-from ..utils.device import resolve_device
 
 
 def parse_args(argv=None):
@@ -71,7 +71,7 @@ def main(argv=None):
     """Train; returns ``{"trainer", "config", "metrics" (the last epoch's
     means), "steps" (run by this call), "seconds"}``."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device, mesh = launch(args.device, args.batch_size)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = pathlib.Path(args.output)
@@ -90,10 +90,10 @@ def main(argv=None):
         TrainerConfig(optimizer=optimizer_config(args.learning_rate), seed=args.seed,
                       log_every=100, checkpoint_dir=str(out / "checkpoints"),
                       checkpoint_every=args.iters_per_checkpoint),
-        device, serving=lambda: ("Tacotron2", config, model.state_dict(), None))
+        device, serving=lambda: ("Tacotron2", config, model.state_dict(), None), mesh=mesh)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"Tacotron2: {n_params / 1e6:.1f}M params, {len(ds)} items, "
-          f"{'bf16' if args.amp else 'f32'}, device {device}")
+          f"{'bf16' if args.amp else 'f32'}, device {device}, dp={mesh.n_data if mesh else 1}")
 
     position = (0, 0)  # (epoch, batches done in it)
     if args.resume:

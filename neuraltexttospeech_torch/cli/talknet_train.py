@@ -1,7 +1,7 @@
 """TalkNet 2 training CLI: the QuartzNet CTC ASR (``--model asr``) or one of
 the TTS heads (``duration``, ``pitch``, ``spectrogram``).
 
-Port of ``talknet/train.py``, through the generic one-card
+Port of ``talknet/train.py``, through the generic
 :class:`~..train.harness.Trainer` with Adam (lr 1e-3, b2 0.999, eps 1e-8)
 after a global-norm clip at 1.0. Each model's BatchNorm takes the batch's
 statistics and updates its running buffers in the step's forward.
@@ -47,10 +47,11 @@ from ..models.gradtts import generate_path
 from ..models.registry import apply_overrides, save_model_config
 from ..models.talknet import (GraphemeDuration, PitchPredictor, QuartzNet, QuartzNetConfig,
                               SpectrogramModel, TalkNet2Config, ctc_loss, greedy_decode,
-                              word_error_rate)
+                              word_errors)
+from ..parallel.distributed import launch
+from ..parallel.mesh import global_count, global_mean
 from ..train.harness import Trainer, TrainerConfig
 from ..train.state import OptimizerConfig
-from ..utils.device import resolve_device
 from ..utils.masking import mask_from_lens
 from .fastspeech2_train import FS2Dataset
 
@@ -90,13 +91,35 @@ def optimizer_config(learning_rate: float) -> OptimizerConfig:
 
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    return torch.sum(x * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.sum(x * mask) / torch.clamp_min(global_count(torch.sum(mask)), 1.0)
 
 
 def asr_loss_fn(model, batch, generator):
     logp = model(batch["mel"], generator)
     loss = ctc_loss(logp, batch["mel_lens"] // 2, batch["labels"], batch["label_lens"])
     return loss, {"ctc": loss}
+
+
+def transcribe(model, batch):
+    """The ASR's greedy transcripts of ``batch`` (an eval-mode forward, as
+    JAX's CLI decodes after each step) and the batch's reference texts."""
+    model.eval()
+    with torch.no_grad():
+        logp = model(batch["mel"])
+    model.train()
+    return [VOCAB.decode(ids) for ids in greedy_decode(logp, batch["mel_lens"] // 2)], \
+        list(batch["texts"])
+
+
+def corpus_wer(refs, hyps, mesh=None, device=None) -> float:
+    """The WER of the transcripts; under a mesh each rank holds its rows'
+    transcripts and the error and word counts are summed over the data
+    group, so every rank has the global batch's WER."""
+    counts = word_errors(refs, hyps)
+    if mesh is not None:
+        with mesh:
+            counts = global_count(torch.tensor(counts, dtype=torch.int64, device=device)).tolist()
+    return counts[0] / max(counts[1], 1)
 
 
 def frame_pitch(batch) -> torch.Tensor:
@@ -121,7 +144,7 @@ def pitch_loss_fn(model, batch, generator):
     f0_loss = _masked_mean(torch.square(f0 - tgt), m)
     v_tgt = (tgt != 0).float()
     # a plain mean over every frame, padding included, as the JAX CLI's
-    bce = torch.mean((torch.relu(voiced) - voiced * v_tgt
+    bce = global_mean((torch.relu(voiced) - voiced * v_tgt
                       + torch.log1p(torch.exp(-torch.abs(voiced)))) * m)
     return f0_loss + bce, {"f0_mse": f0_loss, "voiced_bce": bce}
 
@@ -143,7 +166,7 @@ def main(argv=None):
     means, as floats, with ``wer`` for the ASR), "steps" (run by this call),
     "seconds"}``."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device, mesh = launch(args.device, args.batch_size)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = pathlib.Path(args.output)
@@ -163,10 +186,11 @@ def main(argv=None):
         LOSSES[args.model], model,
         TrainerConfig(optimizer=optimizer_config(args.learning_rate), seed=args.seed,
                       checkpoint_dir=str(out / "checkpoints")),
-        device, serving=lambda: (name, config, model.state_dict(), frontend))
+        device, serving=lambda: (name, config, model.state_dict(), frontend), mesh=mesh)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"{name}/{args.model}: {n_params / 1e6:.1f}M params, {len(ds)} items, "
-          f"{'bf16' if args.amp and args.model != 'asr' else 'f32'}, device {device}")
+          f"{'bf16' if args.amp and args.model != 'asr' else 'f32'}, device {device}, "
+          f"dp={mesh.n_data if mesh else 1}")
 
     position = (0, 0)  # (epoch, batches done in it)
     if args.resume:
@@ -189,14 +213,10 @@ def main(argv=None):
 
         def on_step(batch):
             trainer.extra_state["position"] = batch["position"]
-            if args.model == "asr":  # greedy decoding of an eval-mode forward
-                model.eval()
-                with torch.no_grad():
-                    logp = model(batch["mel"])
-                model.train()
-                for ids, ref in zip(greedy_decode(logp, batch["mel_lens"] // 2), batch["texts"]):
-                    hyps.append(VOCAB.decode(ids))
-                    refs.append(ref)
+            if args.model == "asr":  # this rank's rows
+                h, r = transcribe(model, batch)
+                hyps.extend(h)
+                refs.extend(r)
 
         trainer.extra_state["position"] = (epoch, skip_now)
         step0 = trainer.step
@@ -204,7 +224,7 @@ def main(argv=None):
                                     on_step=on_step)
         steps += trainer.step - step0
         if args.model == "asr":
-            metrics["wer"] = word_error_rate(refs, hyps)
+            metrics["wer"] = corpus_wer(refs, hyps, mesh, device)
         print(f"epoch {epoch}: " + " ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.items())))
         trainer.extra_state["position"] = (epoch + 1, 0)
         if (epoch + 1) % max(args.epochs_per_checkpoint, 1) == 0:

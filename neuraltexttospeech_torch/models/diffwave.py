@@ -30,6 +30,7 @@ scalar, which promotes bf16 to f32.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -39,6 +40,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..nn.layers import Conv1d, ConvTranspose2d, Linear
+from ..parallel.mesh import global_draw, global_mean
 
 __all__ = ["DiffWaveConfig", "DiffWave", "DiffusionEmbedding", "SpectrogramUpsampler",
            "ResidualBlock", "diffwave_loss", "sampling_schedule", "reverse_sample"]
@@ -191,20 +193,23 @@ def diffwave_loss(model: DiffWave, batch, generator: Optional[torch.Generator] =
 
     ``batch``: audio [B, T], mel [B, T // hop, n_mels] (None or absent when
     unconditional). The steps ``t`` [B] and the ``noise`` [B, T] are drawn
-    from ``generator`` unless given. Returns ``(loss, {"l1_noise": loss})``.
+    from ``generator`` unless given (under a data-parallel mesh: this rank's
+    rows of the global batch's draws, and the global mean). Returns ``(loss,
+    {"l1_noise": loss})``.
     """
     c = model.config
     audio, mel = batch["audio"], batch.get("mel")
     B = audio.shape[0]
     if t is None:
-        t = torch.randint(0, c.num_steps, (B,), generator=generator, device=audio.device)
+        t = global_draw(functools.partial(torch.randint, 0, c.num_steps), (B,), generator,
+                        device=audio.device)
     if noise is None:
-        noise = torch.randn(audio.shape, generator=generator, device=audio.device)
+        noise = global_draw(torch.randn, audio.shape, generator, device=audio.device)
     beta = torch.tensor(c.noise_schedule, dtype=torch.float32, device=audio.device)
     scale = torch.sqrt(torch.cumprod(1.0 - beta, dim=0)[t])[:, None]
     noisy = scale * audio + torch.sqrt(1.0 - scale ** 2) * noise
     predicted = model(noisy, t, mel)
-    loss = torch.mean(torch.abs(noise - predicted))
+    loss = global_mean(torch.abs(noise - predicted))
     return loss, {"l1_noise": loss}
 
 

@@ -10,7 +10,8 @@ int64 on the logits' device, so on the card PyTorch runs its native CTC
 kernel, not cuDNN's. It reads the lengths on the host, one device-to-host
 copy a call. An alignment that cannot fit (fewer mel frames than text
 positions) gives an infinite loss here, where optax's log-zero of -1e5 gives
-a large finite one.
+a large finite one. Under a data-parallel mesh every mean and masked count
+is the global batch's (``parallel.mesh.global_mean``, ``global_count``).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Dict, Tuple
 import torch
 from torch.nn import functional as F
 
+from ..parallel.mesh import global_count, global_mean
 from ..utils.masking import mask_from_lens
 
 __all__ = ["FastPitchLossConfig", "fastpitch_loss", "attention_ctc_loss",
@@ -51,7 +53,7 @@ def attention_ctc_loss(attn_logprob: torch.Tensor, in_lens: torch.Tensor,
     targets = torch.arange(1, T_text + 1, device=dev).expand(B, T_text)
     per_example = F.ctc_loss(log_probs.transpose(0, 1), targets, out_lens.long(),
                              in_lens.long(), blank=0, reduction="none")
-    return torch.mean(per_example / torch.clamp_min(out_lens.float(), 1.0))
+    return global_mean(per_example / torch.clamp_min(out_lens.float(), 1.0))
 
 
 def attention_binarization_loss(hard_attention: torch.Tensor, soft_attention: torch.Tensor,
@@ -60,14 +62,14 @@ def attention_binarization_loss(hard_attention: torch.Tensor, soft_attention: to
     log_soft = torch.log(torch.clamp_min(soft_attention, eps))
     num = torch.sum(torch.where(hard_attention == 1.0, log_soft,
                                 torch.zeros((), device=log_soft.device)))
-    return -num / torch.clamp_min(torch.sum(hard_attention), 1.0)
+    return -num / torch.clamp_min(global_count(torch.sum(hard_attention)), 1.0)
 
 
 def _masked_mse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Mean squared error over the masked elements; a mask that broadcasts
     over trailing feature axes counts each broadcast element."""
     sq = torch.square(pred - target) * mask
-    n = torch.sum(mask.expand(sq.shape))
+    n = global_count(torch.sum(mask.expand(sq.shape)))
     return torch.sum(sq) / torch.clamp_min(n, 1.0)
 
 
@@ -104,6 +106,6 @@ def fastpitch_loss(model_out, mel_target: torch.Tensor, input_lens: torch.Tensor
         "attn_loss": attn_loss,
         "kl_loss": kl_loss,
         "dur_error": torch.sum(torch.abs(o.dur_pred - dur_target) * dur_mask)
-        / torch.clamp_min(torch.sum(dur_mask), 1.0),
+        / torch.clamp_min(global_count(torch.sum(dur_mask)), 1.0),
     }
     return loss, meta

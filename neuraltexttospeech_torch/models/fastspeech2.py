@@ -34,6 +34,7 @@ from torch import nn
 
 from ..nn.layers import ConvNorm, LayerNorm, Linear, dropout
 from ..nn.transformer import FFTransformer
+from ..parallel.mesh import global_count
 from ..utils.masking import mask_from_lens
 from .fastpitch import TemporalPredictor, regulate_len
 
@@ -203,9 +204,10 @@ class FastSpeech2(nn.Module):
 
 
 def _masked_mean(err: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    """sum(err · m) over the count of ``m`` broadcast to ``err``'s shape."""
+    """sum(err · m) over the count of ``m`` broadcast to ``err``'s shape
+    (the global batch's count under a data-parallel mesh)."""
     err = err * m
-    return torch.sum(err) / torch.clamp_min(torch.sum(m.expand_as(err)), 1.0)
+    return torch.sum(err) / torch.clamp_min(global_count(torch.sum(m.expand_as(err))), 1.0)
 
 
 def fastspeech2_loss(out: FastSpeech2Output, mel_tgt, dur_tgt, pitch_tgt, energy_tgt,

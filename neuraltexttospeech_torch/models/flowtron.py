@@ -40,6 +40,7 @@ from torch.nn import functional as F
 from ..nn.layers import Conv1d, Embedding, Linear, dropout, same_padding, softmax
 from ..nn.precision import compute_dtype, promote
 from ..nn.rnn import BiLSTM, LSTMCell, run_lstm
+from ..parallel.mesh import global_count, global_mean
 from ..utils.masking import mask_from_lens
 
 __all__ = ["FlowtronConfig", "FlowtronOutput", "flip_by_lens", "MaskedInstanceNorm",
@@ -389,16 +390,17 @@ def flowtron_loss(output: FlowtronOutput, mel_lens: torch.Tensor,
                   gate_target: Optional[torch.Tensor] = None, sigma: float = 1.0):
     """``(½‖z/σ‖² − Σ log_s) / n`` over the valid frames, ``n = max(frames,
     1)·n_mel``, plus the gate's BCE on the logits, a mean over all ``B·T``
-    positions with the mask multiplied in. The mixture head is not in it."""
+    positions with the mask multiplied in. The mixture head is not in it.
+    Under a data-parallel mesh ``n`` and the mean are the global batch's."""
     mask = mask_from_lens(mel_lens, output.z.shape[1])[..., None].float()
-    n = torch.clamp_min(mask.sum(), 1.0) * output.z.shape[-1]
+    n = torch.clamp_min(global_count(mask.sum()), 1.0) * output.z.shape[-1]
     nll = torch.sum(torch.square(output.z) * mask) / (2 * sigma * sigma)
     logdet = torch.sum(output.log_s_sum * mask)
     loss = (nll - logdet) / n
     meta = {"nll": nll / n, "logdet": logdet / n}
     if output.gate_out is not None and gate_target is not None:
         g = output.gate_out
-        gate_loss = torch.mean((torch.relu(g) - g * gate_target
+        gate_loss = global_mean((torch.relu(g) - g * gate_target
                                 + torch.log1p(torch.exp(-torch.abs(g)))) * mask[..., 0])
         loss = loss + gate_loss
         meta["gate_loss"] = gate_loss

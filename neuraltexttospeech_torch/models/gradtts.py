@@ -55,6 +55,7 @@ from torch.nn import functional as F
 from ..nn.layers import (Conv2d, ConvNorm, ConvTranspose2d, GroupNorm, LayerNorm, Linear,
                          dropout)
 from ..ops.mas import maximum_path
+from ..parallel.mesh import global_count, global_draw
 from ..utils.masking import mask_from_lens
 
 __all__ = ["GradTTSConfig", "GradTTS", "TextEncoder", "GradLogPEstimator2D", "Diffusion",
@@ -116,7 +117,7 @@ def duration_loss(logw: torch.Tensor, logw_hat: torch.Tensor,
                   lengths: torch.Tensor) -> torch.Tensor:
     """(reference ``model/utils.py:47-50``)."""
     return torch.sum(torch.square(logw - logw_hat)) / torch.clamp_min(
-        torch.sum(lengths.float()), 1.0)
+        global_count(torch.sum(lengths.float())), 1.0)
 
 
 def gaussian_log_prior(mu_x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -515,7 +516,7 @@ class Diffusion(nn.Module):
         est = self.estimator(xt, mask, mu, t, spk)
         est = est * torch.sqrt(1.0 - torch.exp(-cum))
         loss = torch.sum(torch.square(est + z)) / (
-            torch.clamp_min(torch.sum(mask.float()), 1.0) * c.n_feats)
+            torch.clamp_min(global_count(torch.sum(mask.float())), 1.0) * c.n_feats)
         return loss, xt
 
     def compute_loss(self, x0, mask, mu, spk=None, offset: float = 1e-5,
@@ -524,10 +525,10 @@ class Diffusion(nn.Module):
         """:meth:`loss_t` at ``t`` ~ U[offset, 1 − offset) and ``z`` ~ N(0, 1),
         each drawn from ``generator`` unless given."""
         if t is None:
-            t = torch.rand(x0.shape[0], generator=generator, device=x0.device)
+            t = global_draw(torch.rand, (x0.shape[0],), generator, device=x0.device)
             t = torch.clamp_min(t * (1.0 - 2 * offset) + offset, offset)
         if z is None:
-            z = torch.randn(x0.shape, generator=generator, device=x0.device)
+            z = global_draw(torch.randn, x0.shape, generator, device=x0.device)
         return self.loss_t(x0, mask, mu, t.float(), z.float(), spk)
 
 
@@ -611,7 +612,7 @@ class GradTTS(nn.Module):
 
         if out_size is not None and out_size < y.shape[1]:
             if u is None:
-                u = torch.rand(y.shape[0], generator=generator, device=y.device)
+                u = global_draw(torch.rand, (y.shape[0],), generator, device=y.device)
             offsets = cut_offsets(u, y_lengths, out_size)
             y = cut_segments(y, offsets, out_size, dim=1)
             attn = cut_segments(attn, offsets, out_size, dim=2)
@@ -624,5 +625,5 @@ class GradTTS(nn.Module):
                                                  generator=generator)
         m = y_mask[:, :, None].float()
         prior_loss = torch.sum(0.5 * (torch.square(y - mu_y) + math.log(2 * math.pi)) * m)
-        prior_loss = prior_loss / (torch.clamp_min(torch.sum(m), 1.0) * c.n_feats)
+        prior_loss = prior_loss / (torch.clamp_min(global_count(torch.sum(m)), 1.0) * c.n_feats)
         return dur_loss, prior_loss, diff_loss

@@ -39,6 +39,7 @@ from ..nn import fastconv
 from ..nn.layers import Conv1d, ConvTranspose1d, promoted_conv, same_padding
 from ..nn.norms import SpectralNorm
 from ..nn.norms import weight_norm as _weight_norm
+from ..parallel.mesh import global_mean
 
 __all__ = ["HiFiGANConfig", "Generator", "ResBlock1", "ResBlock2",
            "transpose_padding", "DiscriminatorP", "MultiPeriodDiscriminator",
@@ -443,7 +444,7 @@ def feature_loss(fmap_r: List[List[torch.Tensor]], fmap_g) -> torch.Tensor:
     loss = 0.0
     for dr, dg in zip(fmap_r, fmap_g):
         for r, g in zip(dr, dg):
-            loss = loss + torch.mean(torch.abs(r - g))
+            loss = loss + global_mean(torch.abs(r - g))
     return loss * 2.0
 
 
@@ -451,8 +452,8 @@ def discriminator_loss(disc_real, disc_generated):
     loss = 0.0
     r_losses, g_losses = [], []
     for dr, dg in zip(disc_real, disc_generated):
-        r_loss = torch.mean(torch.square(1.0 - dr))
-        g_loss = torch.mean(torch.square(dg))
+        r_loss = global_mean(torch.square(1.0 - dr))
+        g_loss = global_mean(torch.square(dg))
         loss = loss + r_loss + g_loss
         r_losses.append(r_loss)
         g_losses.append(g_loss)
@@ -463,7 +464,7 @@ def generator_loss(disc_outputs):
     loss = 0.0
     gen_losses = []
     for dg in disc_outputs:
-        l_g = torch.mean(torch.square(1.0 - dg))
+        l_g = global_mean(torch.square(1.0 - dg))
         gen_losses.append(l_g)
         loss = loss + l_g
     return loss, gen_losses

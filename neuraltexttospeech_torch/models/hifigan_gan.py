@@ -18,6 +18,15 @@ the same starting ``u``), so it runs once and the generator lane reads its
 feature maps detached. The mels run through kernel B1 (``ops/mel_kernel.py``)
 on the card, with its analytic backward for the mel loss.
 
+Given a data-parallel ``mesh`` (``parallel/mesh.py``) the step is JAX's
+pjit step over the global batch: :meth:`HiFiGANTrainer.device_iter` takes
+each rank's rows, the step runs both lanes on them inside ``with mesh:``
+(every loss a mean over the global batch, so B1 ×3 and B2 ×90 run on each
+rank's rows), one all-reduce of a flat buffer sums the three networks'
+gradients over the data group and one more the metrics, and each Adam
+steps on its network's reduced gradients. The three networks start from
+rank 0's.
+
 ``dtype=torch.bfloat16`` is the JAX package's ``--amp`` (flax ``dtype=bf16``):
 both lanes run their convs in bf16 (``nn/precision.py``; the MSD's through
 B2's bf16 form), the generated audio is cast to f32 before its log-mel (B1 stays f32, as in
@@ -26,15 +35,19 @@ JAX), and the three Adams step the f32 parameters with f32 gradients.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import contextlib
+from typing import Dict, Iterable, Optional
 
 import torch
 from torch.nn import functional as F
 
 from ..audio.stft import STFTConfig
+from ..data.prefetch import prefetch
 from ..nn.norms import folded_state_dict
 from ..nn.precision import compute_dtype
 from ..ops.mel_kernel import fused_mel_spectrogram
+from ..parallel.mesh import (FlatGrads, Mesh, global_mean, reduce_metrics, replicated,
+                             shard_batch)
 from .hifigan import (
     Generator, HiFiGANConfig, MultiPeriodDiscriminator, MultiScaleDiscriminator,
     discriminator_loss, feature_loss, generator_loss, resolve_msd_group_impl,
@@ -96,20 +109,28 @@ class HiFiGANTrainer:
 
     The learning rate follows :func:`learning_rate` at the pre-update step;
     ``dtype`` is the step's compute dtype (None: f32; bf16: the module
-    docstring)."""
+    docstring); ``mesh`` a data-parallel mesh (None: one card)."""
 
     def __init__(self, config: HiFiGANConfig, device, steps_per_epoch: int = 1000,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, mesh: Optional[Mesh] = None):
+        if mesh is not None and mesh.n_model != 1:
+            raise ValueError("the GAN step shards the batch only: give it a mesh with n_model=1")
         self.config = config
         self.device = torch.device(device)
         self.steps_per_epoch = steps_per_epoch
         self.dtype = dtype
+        self.mesh = mesh
         self.msd_group_impl = resolve_msd_group_impl(config.fast_grouped_convs)
         gen = torch.Generator().manual_seed(config.seed)
         self.gen = init_params_(Generator(config, weight_norm=True), gen).to(self.device)
         self.mpd = init_params_(MultiPeriodDiscriminator(), gen).to(self.device)
         self.msd = init_params_(MultiScaleDiscriminator(self.msd_group_impl, generator=gen),
                                 gen).to(self.device)
+        if mesh is not None:
+            for net in (self.gen, self.mpd, self.msd):
+                replicated(net, mesh)
+            self._params = [p for net in (self.gen, self.mpd, self.msd) for p in net.parameters()]
+            self._flat_grads = FlatGrads(self._params)
         self.step = 0
         adam = dict(lr=config.learning_rate, betas=(config.adam_b1, config.adam_b2), eps=1e-8)
         self.optimizers = {name: torch.optim.Adam(getattr(self, name).parameters(), **adam)
@@ -120,17 +141,40 @@ class HiFiGANTrainer:
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """One GAN step on ``batch``: ``audio [B, S, 1]`` and optionally
         ``mel`` / ``mel_loss`` [B, S/hop, n_mel] (an audio-only batch computes
-        both in the step). Returns the metrics as 0-d f32 tensors on the
-        device."""
-        with compute_dtype(self.dtype):
-            metrics = self._losses_and_grads(batch)
+        both in the step); under a mesh, this rank's rows of the global batch
+        (:meth:`device_iter`'s). Returns the metrics as 0-d f32 tensors on
+        the device."""
+        metrics = self.losses_and_grads(batch)
         lr = learning_rate(self.config, self.step, self.steps_per_epoch)  # pre-update step
         for opt in self.optimizers.values():
             for group in opt.param_groups:
                 group["lr"] = lr
             opt.step()
         self.step += 1
-        return {k: v.detach().float() for k, v in metrics.items()}
+        return metrics
+
+    def device_iter(self, batches: Iterable[Dict[str, torch.Tensor]]):
+        """The batches on the trainer's device, sharded under a mesh (this
+        rank's rows) and copied by a background thread."""
+        if self.mesh is not None:
+            batches = (shard_batch(b, self.mesh) for b in batches)
+        return prefetch(batches, self.device)
+
+    def losses_and_grads(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Both lanes' losses on ``batch`` and the three networks' gradients
+        in their ``.grad`` (under a mesh: summed over the data group), without
+        an update; ``batch`` as :meth:`train_step`'s. Returns the metrics as
+        0-d f32 tensors."""
+        with compute_dtype(self.dtype), self.mesh or contextlib.nullcontext():
+            metrics = self._losses_and_grads(batch)
+        metrics = {k: v.detach().float() for k, v in metrics.items()}
+        if self.mesh is None:
+            return metrics
+        for p in self._params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        self._flat_grads.all_reduce_([p.grad for p in self._params], self.mesh)
+        return reduce_metrics(metrics, self.mesh)
 
     def _losses_and_grads(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         y = batch["audio"]
@@ -145,7 +189,7 @@ class HiFiGANTrainer:
 
         y_hat = self.gen(mel)
         y_hat_mel = mel_for_loss(y_hat[..., 0], self.loss_cfg)
-        loss_mel = torch.mean(torch.abs(y_hat_mel - mel_target)) * 45.0
+        loss_mel = global_mean(torch.abs(y_hat_mel - mel_target)) * 45.0
 
         # generator lane: pre-step discriminators, pre-step SN stats, no
         # discriminator grads

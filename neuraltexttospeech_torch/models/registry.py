@@ -23,6 +23,7 @@ from typing import Dict
 
 import torch
 
+from ..parallel.distributed import writes_files
 from .diffwave import DiffWave, DiffWaveConfig
 from .fastpitch import FastPitch, FastPitchConfig
 from .fastspeech2 import FastSpeech2, FastSpeech2Config
@@ -138,8 +139,11 @@ def load_frontend_config(path, default=None):
 
 
 def save_model_config(output_dir, name: str, config, frontend=None) -> pathlib.Path:
-    """Write ``model_config.json`` into ``output_dir`` (a run or checkpoint dir)."""
+    """Write ``model_config.json`` into ``output_dir`` (a run or checkpoint
+    dir); in a multi-process run only rank 0 writes."""
     p = pathlib.Path(output_dir)
+    if not writes_files():
+        return p
     p.mkdir(parents=True, exist_ok=True)
     payload = {"model": name, "config": config_to_dict(config)}
     if frontend:

@@ -42,6 +42,7 @@ from torch import nn
 from ..nn.layers import BatchNorm, Conv1d, Linear, dropout, same_padding, softmax
 from ..nn.precision import compute_dtype
 from ..nn.rnn import BiLSTM, LSTMCell
+from ..parallel.mesh import global_mean
 from ..utils.masking import mask_from_lens
 
 __all__ = ["Tacotron2Config", "Tacotron2Output", "Tacotron2", "tacotron2_loss"]
@@ -377,9 +378,10 @@ class Tacotron2(nn.Module):
 
 
 def tacotron2_loss(output: Tacotron2Output, mel_tgt: torch.Tensor, gate_tgt: torch.Tensor):
-    """Mel MSE (decoder + postnet) + gate BCE on the logits."""
-    mel_loss = (torch.mean(torch.square(output.mel_out - mel_tgt))
-                + torch.mean(torch.square(output.mel_out_postnet - mel_tgt)))
+    """Mel MSE (decoder + postnet) + gate BCE on the logits: means over
+    the global batch under a data-parallel mesh."""
+    mel_loss = (global_mean(torch.square(output.mel_out - mel_tgt))
+                + global_mean(torch.square(output.mel_out_postnet - mel_tgt)))
     g = output.gate_out
-    gate_loss = torch.mean(torch.relu(g) - g * gate_tgt + torch.log1p(torch.exp(-torch.abs(g))))
+    gate_loss = global_mean(torch.relu(g) - g * gate_tgt + torch.log1p(torch.exp(-torch.abs(g))))
     return mel_loss + gate_loss, {"mel_loss": mel_loss, "gate_loss": gate_loss}

@@ -1,5 +1,5 @@
 """Tacotron 2 training: stop-token targets, the optimizer and the loss
-function of the generic one-card :class:`~..train.harness.Trainer`.
+function of the generic :class:`~..train.harness.Trainer`.
 
 Counterpart of ``neuraltexttospeech_tpu/models/tacotron2_train.py``
 (:1-101). JAX's dedicated ``tacotron2_train_step`` carries the BatchNorm

@@ -45,6 +45,7 @@ from torch.nn import functional as F
 
 from ..nn.layers import BatchNorm, Conv1d, Embedding, dropout
 from ..nn.precision import compute_dtype
+from ..parallel.mesh import global_mean
 from ..utils.masking import mask_from_lens
 
 __all__ = ["QuartzNetConfig", "QuartzNet", "ctc_loss", "greedy_decode", "word_error_rate",
@@ -153,11 +154,12 @@ class QuartzNet(nn.Module):
 def ctc_loss(log_probs: torch.Tensor, logit_lens: torch.Tensor, labels: torch.Tensor,
              label_lens: torch.Tensor, blank_id: int = 0) -> torch.Tensor:
     """Mean over the batch of each utterance's CTC loss (``optax.ctc_loss``,
-    unnormalised by length). Infinite where a label cannot fit its logits,
-    where optax gives a large finite value."""
+    unnormalised by length; the global batch's mean under a data-parallel
+    mesh). Infinite where a label cannot fit its logits, where optax gives a
+    large finite value."""
     per = F.ctc_loss(log_probs.float().transpose(0, 1), labels.long(), logit_lens.long(),
                      label_lens.long(), blank=blank_id, reduction="none")
-    return per.mean()
+    return global_mean(per)
 
 
 def greedy_decode(log_probs: torch.Tensor, logit_lens: torch.Tensor,
@@ -178,6 +180,13 @@ def greedy_decode(log_probs: torch.Tensor, logit_lens: torch.Tensor,
 
 def word_error_rate(refs: Sequence[str], hyps: Sequence[str]) -> float:
     """Corpus WER by word-level edit distance."""
+    total_err, total_words = word_errors(refs, hyps)
+    return total_err / max(total_words, 1)
+
+
+def word_errors(refs: Sequence[str], hyps: Sequence[str]) -> Tuple[int, int]:
+    """The word-level edit distance summed over the pairs, and the number of
+    reference words: :func:`word_error_rate`'s two sums."""
     total_err = total_words = 0
     for ref, hyp in zip(refs, hyps):
         r, h = ref.split(), hyp.split()
@@ -190,7 +199,7 @@ def word_error_rate(refs: Sequence[str], hyps: Sequence[str]) -> float:
                 d[i, j] = min(sub, d[i - 1, j] + 1, d[i, j - 1] + 1)
         total_err += int(d[len(r), len(h)])
         total_words += len(r)
-    return total_err / max(total_words, 1)
+    return total_err, total_words
 
 
 class StringMap:

@@ -9,7 +9,10 @@ Dropout is explicit, as flax's ``deterministic`` flag is: a module drops
 only when its call is given a ``torch.Generator`` (the trainer's per-step
 stream), and never otherwise, whatever the module's train/eval mode. The
 masks are drawn with ``torch.rand`` from that generator (``F.dropout``
-takes none).
+takes none). Under a data-parallel mesh (``parallel/mesh.py``) the mask is
+drawn at the global batch shape and each rank keeps its rows, as JAX draws
+one mask for the global batch; BatchNorm takes its statistics over the
+global batch.
 
 :class:`Conv1d`, :class:`ConvTranspose1d`, :class:`Conv2d`,
 :class:`ConvTranspose2d`, :class:`Linear`, :class:`Embedding`,
@@ -26,9 +29,11 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed.nn.functional as dist_nn
 from torch import nn
 from torch.nn import functional as F
 
+from ..parallel.mesh import current as current_mesh, global_draw
 from .precision import current, promote
 
 __all__ = ["Conv1d", "ConvTranspose1d", "Conv2d", "ConvTranspose2d", "Linear", "Embedding",
@@ -46,16 +51,19 @@ def same_padding(kernel_size: int, dilation: int = 1) -> int:
     return dilation * (kernel_size - 1) // 2
 
 
-def dropout(x: torch.Tensor, p: float,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator] = None, *,
+            model_axis: Optional[int] = None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each element with probability ``1 - p`` and
     scale it by ``1 / (1 - p)``. Without a generator (or at ``p == 0``) it
-    returns ``x``."""
+    returns ``x``. Under a mesh the mask is this rank's slice of the global
+    one (``parallel.mesh.global_draw``): the batch is ``x``'s axis 0, and
+    ``model_axis`` holds its heads when a tensor-parallel block splits them."""
     if generator is None or p == 0.0:
         return x
     if p >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    keep = global_draw(torch.rand, x.shape, generator, model_axis=model_axis,
+                       device=x.device) < 1.0 - p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -169,7 +177,13 @@ class BatchNorm(nn.Module):
     normalises by the buffers. ``y = (x − mean)·(rsqrt(var + eps)·weight) +
     bias`` in f32, cast to the compute dtype when one is set. ``weight``,
     ``bias`` and the f32 buffers ``running_mean``/``running_var`` are flax's
-    ``scale``, ``bias``, ``mean`` and ``var``."""
+    ``scale``, ``bias``, ``mean`` and ``var``.
+
+    Under a data-parallel mesh the statistics are the global batch's (flax
+    under pjit): the sums of ``x`` and ``x²`` are summed over the data group
+    by a differentiable all-reduce, whose backward sums the gradients too,
+    and divided by the global element count, so every rank holds the same
+    statistics and buffers."""
 
     def __init__(self, num_features: int, momentum: float = 0.99, eps: float = 1e-5):
         super().__init__()
@@ -184,8 +198,15 @@ class BatchNorm(nn.Module):
         if self.training:
             dims = [d for d in range(x.dim()) if d != 1]
             xf = x.float()
-            mean = xf.mean(dims)
-            var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+            mesh = current_mesh()
+            if mesh is None:
+                mean, mean_sq = xf.mean(dims), (xf * xf).mean(dims)
+            else:
+                sums = dist_nn.all_reduce(torch.stack([xf.sum(dims), (xf * xf).sum(dims)]),
+                                          group=mesh.data_group)
+                n = float(x.numel() // x.shape[1] * mesh.n_data)  # equal shards
+                mean, mean_sq = sums[0] / n, sums[1] / n
+            var = torch.clamp_min(mean_sq - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

@@ -10,6 +10,12 @@ given a generator (``nn/layers.py``).
 
 Masking adds a -1e9 bias on padded keys, as in JAX, so fully padded query
 rows stay finite.
+
+A block that ``parallel/tp.py::shard_params_tp`` sharded holds the mesh in
+``tp`` and runs Megatron's layout with its two collectives: the gradient of
+the replicated input summed over the model group where it enters a
+column-parallel layer (``copy_to_model``), the row-parallel layer's partial
+outputs summed after it (``reduce_from_model``).
 """
 
 from __future__ import annotations
@@ -21,8 +27,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.tp import copy_to_model, reduce_from_model
 from ..utils.masking import mask_from_lens
-from .layers import LN_EPS, ConvNorm, Embedding, LayerNorm, Linear, dropout
+from .layers import LN_EPS, ConvNorm, Embedding, LayerNorm, Linear, dropout, promoted_conv
 
 __all__ = [
     "positional_embedding",
@@ -52,7 +59,10 @@ def positional_embedding(seq_len: int, dim: int,
 
 class MultiHeadAttn(nn.Module):
     """Post-LN self-attention with fused QKV; output features of ``qkv`` are
-    ordered ``[3][n_head][d_head]`` as in JAX."""
+    ordered ``[3][n_head][d_head]`` as in JAX. Tensor parallel (``tp`` set),
+    ``qkv`` holds whole heads of q, k and v when the model axis divides
+    ``n_head`` and is replicated otherwise; ``o`` holds its input features'
+    slice."""
 
     def __init__(self, n_head: int, d_model: int, d_head: int, dropout: float = 0.0,
                  dropatt: float = 0.0):
@@ -62,24 +72,36 @@ class MultiHeadAttn(nn.Module):
         self.qkv = Linear(d_model, 3 * n_head * d_head)
         self.o = Linear(n_head * d_head, d_model, bias=False)
         self.layer_norm = LayerNorm(d_model, eps=LN_EPS)
+        self.tp = None
 
     def forward(self, x: torch.Tensor, attn_mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: [B, T, C]; attn_mask: [B, T] bool, True = valid key."""
         B, T = x.shape[0], x.shape[1]
-        qkv = self.qkv(x).view(B, T, 3, self.n_head, self.d_head)
-        q, k, v = qkv.unbind(2)  # [B, T, H, D]
+        heads = self.qkv.weight.shape[0] // (3 * self.d_head)  # this rank's
+        split = heads != self.n_head
+        qkv = self.qkv(copy_to_model(x, self.tp) if split else x)
+        q, k, v = qkv.view(B, T, 3, heads, self.d_head).unbind(2)  # [B, T, H, D]
         score = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / np.sqrt(self.d_head))
         bias = torch.where(attn_mask[:, None, None, :], 0.0, _NEG).to(score.dtype)
-        prob = dropout(torch.softmax(score + bias, dim=-1), self.p_dropatt, generator)
-        out = torch.einsum("bhqk,bkhd->bqhd", prob.to(v.dtype), v)
-        out = self.o(out.reshape(B, T, self.n_head * self.d_head))
+        prob = dropout(torch.softmax(score + bias, dim=-1), self.p_dropatt, generator,
+                       model_axis=1 if split else None)
+        out = torch.einsum("bhqk,bkhd->bqhd", prob.to(v.dtype), v).reshape(B, T, -1)
+        width = self.o.weight.shape[1]
+        if self.tp is not None and width != out.shape[-1]:
+            # replicated heads, row-parallel o: this rank's slice of the output
+            out = copy_to_model(out, self.tp).narrow(-1, self.tp.model_index * width, width)
+        out = self.o(out)
+        if self.tp is not None:
+            out = reduce_from_model(out, self.tp)
         return self.layer_norm(x + dropout(out, self.p_dropout, generator))
 
 
 class PositionwiseConvFF(nn.Module):
     """conv(k) -> ReLU -> conv(k2) -> dropout, post-LN residual; ``k2``
-    (``kernel_size_2``) defaults to ``k``."""
+    (``kernel_size_2``) defaults to ``k``. Tensor parallel (``tp`` set),
+    ``conv1`` holds a slice of the inner features' outputs and ``conv2`` of
+    its inputs; ``conv2``'s bias is added after the sum."""
 
     def __init__(self, d_model: int, d_inner: int, kernel_size: int = 3,
                  dropout: float = 0.0, kernel_size_2: Optional[int] = None):
@@ -88,11 +110,18 @@ class PositionwiseConvFF(nn.Module):
         self.conv2 = ConvNorm(d_inner, d_model, kernel_size_2 or kernel_size)
         self.layer_norm = LayerNorm(d_model, eps=LN_EPS)
         self.p_dropout = dropout
+        self.tp = None
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        y = dropout(self.conv2(torch.relu(self.conv1(x))), self.p_dropout, generator)
-        return self.layer_norm(x + y)
+        if self.tp is None:
+            y = self.conv2(torch.relu(self.conv1(x)))
+        else:
+            h = torch.relu(self.conv1(copy_to_model(x, self.tp))).transpose(1, 2)
+            y = promoted_conv(self.conv2._conv_forward, h, self.conv2.weight, None)
+            y = reduce_from_model(y, self.tp)
+            y = (y + self.conv2.bias.to(y.dtype)[:, None]).transpose(1, 2)
+        return self.layer_norm(x + dropout(y, self.p_dropout, generator))
 
 
 class FFTransformerLayer(nn.Module):

@@ -20,6 +20,7 @@ from typing import Any, List, Optional
 import torch
 
 from ..models.registry import WEIGHTS_FILE, save_checkpoint
+from ..parallel.distributed import writes_files
 
 __all__ = ["Checkpointer", "checkpoint_steps", "checkpoint_dir"]
 
@@ -67,9 +68,10 @@ class Checkpointer:
 
     def save(self, step: int, state: dict, *, serving=None, force: bool = False) -> bool:
         """Write checkpoint ``step`` unless it exists or (without ``force``)
-        ``step`` is not a multiple of the save interval. ``serving`` is
-        ``(model_name, config, state_dict)`` for the serving checkpoint."""
-        if step in self.all_steps():
+        ``step`` is not a multiple of the save interval, or this process is
+        not rank 0 of a multi-process run. ``serving`` is ``(model_name,
+        config, state_dict)`` for the serving checkpoint."""
+        if not writes_files() or step in self.all_steps():
             return False
         if not force and step % self.save_interval_steps:
             return False

@@ -1,4 +1,4 @@
-"""The generic training loop on one card (counterpart of
+"""The generic training loop, on one card or data parallel (counterpart of
 ``neuraltexttospeech_tpu/train/harness.py``, :39-295).
 
 Bring a ``loss_fn(model, batch, generator) -> (loss, metrics)``; the
@@ -19,21 +19,32 @@ to write one.
 (``nn/precision.py``, the JAX package's ``dtype=bf16``); the parameters,
 their gradients, the optimizer and the checkpoints stay f32.
 
-The JAX trainer's pjit mesh and its TensorBoard writer are not here: this
-trainer runs on one card, and the port depends on neither ``tensorflow``
-nor ``tensorboard``.
+Given a data-parallel ``mesh`` (``parallel/mesh.py``), the step is JAX's
+pjit step over the global batch: :meth:`Trainer.device_iter` (and
+:meth:`Trainer.evaluate`) take each rank's rows of the global batches, the
+step runs the loss function on them inside ``with mesh:`` (so its loss is
+its share of the global loss: global normalisers, global dropout masks and
+BatchNorm statistics), one all-reduce of a flat buffer sums the gradients
+over the data group and one more the metrics, so the gradient norm, the clip and the update see the global
+gradient and every rank logs the global metrics. The
+parameters start from rank 0's; rank 0 alone writes checkpoints and every
+rank resumes from them. JAX's TensorBoard writer is not here: the port
+depends on neither ``tensorflow`` nor ``tensorboard``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, Dict, Iterable, Optional
 
+import numpy as np
 import torch
 
 from ..data.prefetch import prefetch
 from ..nn.precision import compute_dtype
+from ..parallel.mesh import FlatGrads, Mesh, reduce_metrics, replicated, shard_batch
 from ..utils.generators import seeded_generator
 from .checkpoint import Checkpointer
 from .state import Optimizer, OptimizerConfig, global_norm
@@ -82,24 +93,48 @@ class _MetricMean:
         self.counts.clear()
 
 
+def _cycle_rows(batch: Dict[str, Any], multiple: int) -> Dict[str, Any]:
+    """``batch`` with its rows cycled up to a multiple of ``multiple`` (a
+    partial last validation batch under a mesh, as JAX's ``evaluate`` pads
+    it); the duplicated rows weigh only in the logged means."""
+    sizes = {v.shape[0] for v in batch.values()
+             if isinstance(v, (torch.Tensor, np.ndarray)) and v.ndim >= 1}
+    if len(sizes) != 1 or next(iter(sizes)) % multiple == 0:
+        return batch
+    b = sizes.pop()
+    idx = np.resize(np.arange(b), -(-b // multiple) * multiple)
+    return {k: v[torch.as_tensor(idx) if isinstance(v, torch.Tensor) else idx]
+            if isinstance(v, (torch.Tensor, np.ndarray)) and v.ndim >= 1 else v
+            for k, v in batch.items()}
+
+
 class Trainer:
-    """One-card trainer: a loss function, a model, an optimizer config."""
+    """The trainer: a loss function, a model, an optimizer config, and a
+    data-parallel mesh or none (one card)."""
 
     def __init__(self, loss_fn: LossFn, model: torch.nn.Module,
                  config: TrainerConfig = TrainerConfig(), device=None,
                  serving: Optional[Callable[[], tuple]] = None,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, mesh: Optional[Mesh] = None):
         """``serving()`` returns ``(model_name, config, state_dict, frontend)``
         for the serving checkpoint saved beside each train state; ``dtype``
-        is the loss function's compute dtype (None: f32)."""
+        is the loss function's compute dtype (None: f32); ``mesh`` shards
+        the batch (its model axis must be 1: the trainer, like JAX's, is data
+        parallel only)."""
+        if mesh is not None and mesh.n_model != 1:
+            raise ValueError("the Trainer shards the batch only: give it a mesh with n_model=1")
         self.config = config
         self.dtype = dtype
+        self.mesh = mesh
         self.device = torch.device(device) if device is not None else \
             next(model.parameters()).device
         self.model = model.to(self.device)
+        if mesh is not None:
+            replicated(self.model, mesh)
         self._loss_fn = loss_fn
         self.params = [p for p in self.model.parameters() if p.requires_grad]
         self.optimizer = Optimizer(self.params, config.optimizer)
+        self._flat_grads = FlatGrads(self.params) if mesh is not None else None
         self.step = 0
         self.metrics = _MetricMean()
         self.serving = serving
@@ -130,8 +165,8 @@ class Trainer:
 
     def save(self, force: bool = True) -> bool:
         """Write checkpoint ``step`` (unless it exists, or is off the
-        interval without ``force``), with ``extra_state`` beside the
-        trainer's state."""
+        interval without ``force``, or this process is not rank 0), with
+        ``extra_state`` beside the trainer's state."""
         if self.checkpointer is None:
             return False
         return self.checkpointer.save(
@@ -140,23 +175,36 @@ class Trainer:
 
     # ------------------------------------------------------------- steps
 
-    def train_step(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """One step; returns the metrics as device scalars."""
+    def gradients(self, batch: Dict[str, Any]):
+        """The step's metrics and every parameter's gradient on ``batch``,
+        without an update. Under a mesh ``batch`` holds this rank's rows
+        (:meth:`device_iter`'s) and both are the global batch's, summed over
+        the data group."""
         gen = step_generator(self.config.seed, self.step, self.device)
-        with compute_dtype(self.dtype):
+        with compute_dtype(self.dtype), self.mesh or contextlib.nullcontext():
             loss, metrics = self._loss_fn(self.model, batch, gen)
         grads = torch.autograd.grad(loss, self.params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics.setdefault("loss", loss.detach())
+        if self.mesh is None:
+            return metrics, grads
+        return reduce_metrics(metrics, self.mesh), self._flat_grads.all_reduce_(grads, self.mesh)
+
+    def train_step(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """One step; returns the metrics as device scalars."""
+        metrics, grads = self.gradients(batch)
         metrics["grad_norm"] = global_norm(grads)
         self.optimizer.step(grads)
         self.step += 1
         return metrics
 
     def device_iter(self, batches: Iterable[Dict[str, Any]]):
-        """The batches with their arrays on the trainer's device, collated
-        and copied by a background thread while the current step runs."""
+        """The batches with their arrays on the trainer's device, collated,
+        sharded (under a mesh: this rank's rows) and copied by a background
+        thread while the current step runs."""
+        if self.mesh is not None:
+            batches = (shard_batch(b, self.mesh) for b in batches)
         return prefetch(batches, self.device)
 
     def fit_epoch(self, batches: Iterable[Dict[str, Any]], *, epoch: int = 0,
@@ -190,16 +238,22 @@ class Trainer:
     @torch.no_grad()
     def evaluate(self, loss_fn_eval: LossFn, batches: Iterable[Dict[str, Any]]
                  ) -> Dict[str, float]:
-        """Metric means of ``loss_fn_eval`` over ``batches``, without
-        gradients, each batch with the same fixed dropout generator (JAX
-        evaluates with ``PRNGKey(0)``)."""
+        """Metric means of ``loss_fn_eval`` over the global ``batches``,
+        without gradients, each batch with the same fixed dropout generator
+        (JAX evaluates with ``PRNGKey(0)``) and copied to the device by a
+        background thread; under a mesh a partial batch's rows are cycled up
+        to a multiple of the data shards and each rank takes its rows."""
+        if self.mesh is not None:
+            batches = (shard_batch(_cycle_rows(b, self.mesh.n_data), self.mesh)
+                       for b in batches)
         tracker = _MetricMean()
         n = 0
-        for batch in batches:
+        for batch in prefetch(batches, self.device):
             gen = torch.Generator(device=self.device)
             gen.manual_seed(0)
-            with compute_dtype(self.dtype):
-                tracker.update(loss_fn_eval(self.model, batch, gen)[1])
+            with compute_dtype(self.dtype), self.mesh or contextlib.nullcontext():
+                metrics = loss_fn_eval(self.model, batch, gen)[1]
+            tracker.update(metrics if self.mesh is None else reduce_metrics(metrics, self.mesh))
             n += 1
         if n == 0:
             print("WARNING: evaluate() saw 0 batches — validation set smaller than the "

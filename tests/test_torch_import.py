@@ -1,9 +1,9 @@
 """The PyTorch port stands alone: no JAX, no JAX package, no CPU fallback.
 
-``neuraltexttospeech_torch`` and ``chip_smoke.py`` import neither ``jax``
-nor ``flax`` nor ``neuraltexttospeech_tpu`` (not even its pure-Python
-modules), and their entry points run on the card unless the caller asks for
-the CPU.
+``neuraltexttospeech_torch``, ``chip_smoke.py`` and the port's tools
+(``tools/torch_*.py``) import neither ``jax`` nor ``flax`` nor
+``neuraltexttospeech_tpu`` (not even its pure-Python modules), and their
+entry points run on the card unless the caller asks for the CPU.
 """
 
 import os
@@ -47,13 +47,15 @@ def test_package_imports_without_jax():
                  "cli.talknet_infer", "nn.rnn", "models.tacotron2", "models.tacotron2_train",
                  "cli.tacotron2_prepare_dataset", "cli.tacotron2_train", "cli.tacotron2_infer",
                  "models.flowtron", "cli.flowtron_train", "cli.flowtron_infer", "cli.dump_mels",
-                 "cli.align_from_fastpitch", "cli.export"):
+                 "cli.align_from_fastpitch", "cli.export", "parallel.distributed",
+                 "parallel.mesh", "parallel.tp", "utils.profiling", "utils.plotting"):
         assert f"neuraltexttospeech_torch.{name}" in out.stdout.split(), name
 
 
 def test_no_forbidden_import_statements():
     pat = re.compile(r"^\s*(?:import|from)\s+(" + "|".join(FORBIDDEN) + r")\b", re.M)
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "tools").glob("torch_*.py")))
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in pat.finditer(f.read_text(encoding="utf-8"))]
     assert not hits, hits
