@@ -7,7 +7,9 @@ Phases, each raising on failure:
 
 1. Device: the card's name and power limit.
 2. Kernels: build the three kernels from ``ops/csrc`` (one ``nvcc`` each,
-   at once), hold each against its plain PyTorch twin on the card (TF32 off)
+   at once), run their ``gpu``-marked tests (``tests/test_torch_kernels.py``,
+   in a pytest subprocess), hold each against its plain PyTorch twin on the
+   card (TF32 off)
    and time the kernel, the twin and the PyTorch library call for the same
    function, by device time (the profiler's kernel time) and by CUDA events
    over back-to-back calls (which include the host's dispatch): B1 (log-mel)
@@ -16,9 +18,11 @@ Phases, each raising on failure:
    backward; B2 (the MSD's tap-window grouped GEMM)
    at every distinct MSD shape of a v1 GAN step, forward and dx, in its f32
    (3xTF32) and its bf16 form, each beside grouped ``F.conv1d`` in the same
-   type, with an ``HGMMA`` check of both forms' SASS; MAS (monotonic
-   alignment search, bit for bit) at 16 × 768 × 128 and 16 × 870 × 192, and
-   at the Grad-TTS step's 16 × 512 × 160 on Grad-TTS's Gaussian log-prior.
+   type, with an ``HGMMA`` check of both forms' SASS and each shape's A
+   bytes moved into shared memory; MAS (monotonic alignment search, bit for
+   bit) at 16 × 768 × 128 and 16 × 870 × 192, and at the Grad-TTS step's
+   16 × 512 × 160 on Grad-TTS's Gaussian log-prior, with the kernel's own
+   split into forward, backtrack and plane write (time stamps).
 3. Serving path, through the two serving CLIs with full-width FastPitch and
    HiFi-GAN v1 (random weights from a seed), f32 and then ``--amp`` (bf16):
    text → wav for 16 sentences, then wav → wav copy-synthesis, whose
@@ -279,19 +283,36 @@ def build_kernels():
     log(f"kernels built: {', '.join(sources)} ({time.perf_counter() - t0:.1f} s)")
     sass = subprocess.run([_build.tool("cuobjdump"), "-sass", libs[gouter_kernel.SOURCE]._name],
                           capture_output=True, text=True, check=True).stdout
-    # HGMMA (wgmma) instructions in each main-kernel instantiation: the f32
-    # form (Tf32x3, .tf32 operands) and the bf16 form (Bf16, .bf16 operands)
+    # HGMMA (wgmma) instructions in each form's main kernel: the f32 form
+    # (tap_dots_tc_kernel<Tf32x3>, .tf32 operands) and the bf16 form
+    # (window_taps_bf16_kernel, .bf16 operands)
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-        elif "HGMMA" in line and fn and "tap_dots_tc_kernel" in fn:
+        elif "HGMMA" in line and fn:
             counts[fn] = counts.get(fn, 0) + 1
-    for form in ("Tf32x3", "Bf16"):
-        n = sum(c for name, c in counts.items() if form in name)
-        log(f"B2's {form} instantiations hold {n} HGMMA (wgmma) instructions in their SASS")
+    for form, kernel in (("f32", B2_MAIN_KERNELS[0]), ("bf16", B2_MAIN_KERNELS[1])):
+        n = sum(c for name, c in counts.items() if kernel in name)
+        log(f"B2's {form} kernel ({kernel}) holds {n} HGMMA (wgmma) instructions in its SASS")
         if not n:
             raise RuntimeError(f"B2's {form} form was compiled without wgmma: no HGMMA")
+
+
+def phase_gpu_tests():
+    """The kernels' unit tests on the card (``tests/test_torch_kernels.py``,
+    the ``gpu``-marked ones: each kernel against its twin at the main path's
+    shapes and at its edges)."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "pytest", str(ROOT / "tests" / "test_torch_kernels.py"),
+                          "--noconftest", "-m", "gpu", "-q", "-p", "no:cacheprovider"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=900)
+    lines = out.stdout.strip().splitlines()
+    log(f"gpu tests of the kernels: {lines[-1] if lines else ''} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if out.returncode != 0:
+        log(out.stdout[-6000:] + out.stderr[-2000:])
+        raise RuntimeError(f"the kernels' gpu tests failed (pytest exit {out.returncode})")
 
 
 def phase_kernels(torch, device, card):
@@ -449,8 +470,37 @@ def tap_dots_bound_ms(shape, dtype="f32"):
             fma_ms)
 
 
-# kernel names of B2 in a profile (its main kernel, prologue and split-K sum)
-B2_KERNELS = ("tap_dots_tc_kernel", "pack_weights_kernel", "sum_splits_kernel")
+# kernel names of B2 in a profile: its main kernel in the f32 and the bf16
+# form, its prologue and its split-K sum
+B2_MAIN_KERNELS = ("tap_dots_tc_kernel", "window_taps_bf16_kernel")
+B2_KERNELS = B2_MAIN_KERNELS + ("pack_weights_kernel", "sum_splits_kernel")
+
+
+def gathered_a_bytes(shape, plan_f32_ring, plan_window=None):
+    """Bytes of A that one B2 call moves into shared memory: the f32 form's
+    ring (which the bf16 form also ran before its window kernel) gathers
+    each tile's rows once per tap and K block; the window kernel loads each
+    tile's window once per unit
+    (64 values of X by a group of taps). ``plan_f32_ring`` is
+    ``(warpgroups, columns, splits)``, ``plan_window`` the window kernel's
+    ``(64-row tiles, taps, splits)`` (128 columns). Returns ``(ring,
+    window)``, the latter None without a window plan."""
+    from neuraltexttospeech_torch.ops import gouter_kernel
+
+    g, b, qp, x_dim, y_dim, kf, s, q = shape
+    m = b * q
+    nwg, bn, _ = plan_f32_ring
+    ring = -(-m // (64 * nwg)) * 64 * nwg * (y_dim // bn) * g * kf * x_dim * 2
+    if plan_window is None:
+        return ring, None
+    tiles, taps, _ = plan_window
+    rows = 0
+    for m0 in range(0, m, 64 * tiles):
+        for mf0 in range(0, kf, taps):
+            segs = gouter_kernel.window_segments(m0, min(m0 + 64 * tiles, m), q, qp, mf0,
+                                                 min(taps, kf - mf0), s)
+            rows += sum(n for _, _, n in segs)
+    return ring, rows * 128 * (x_dim // 64) * (y_dim // 128) * g
 
 
 def excess_over_one_bf16_ulp(got, want):
@@ -476,7 +526,7 @@ def phase_tap_dots(torch, device, card, dtype="f32"):
     gen = torch.Generator(device=device).manual_seed(0)
     keys = ("ms", "plain_ms", "library_ms", "ev_ms", "ev_plain_ms", "ev_library_ms",
             "bound_ms", "t_ops", "t_bytes", "fma_bound_ms")
-    totals = dict.fromkeys(keys, 0.0)
+    totals = dict.fromkeys(keys + ("a_ring", "a_window"), 0.0)
     worst = worst_excess = 0.0
     for scale, layer, fwd, dx in msd_tap_shapes(16, 8192):
         for kind, shape, flip_t in (("fwd", fwd, False), ("dx", dx, True)):
@@ -520,13 +570,22 @@ def phase_tap_dots(torch, device, card, dtype="f32"):
             t["bound_ms"], bound_by, t["t_ops"], t["t_bytes"], t["fma_bound_ms"] = \
                 tap_dots_bound_ms(shape, dtype)
             flop = 2 * g * b * kf * q * x_dim * y_dim
-            tile = gouter_kernel.plan_tiles(g, b * q, y_dim,
-                                            kf * x_dim // gouter_kernel.k_block(xp.dtype),
-                                            torch.cuda.get_device_properties(device)
-                                            .multi_processor_count)
+            sms = torch.cuda.get_device_properties(device).multi_processor_count
+            ring_plan = gouter_kernel.plan_tiles(g, b * q, y_dim,
+                                                 kf * x_dim // gouter_kernel.k_block(xp.dtype), sms)
+            if bf16:
+                plan = gouter_kernel.plan_window(g, b * q, y_dim, q, kf, s, x_dim, sms)
+                ring_bytes, win_bytes = gathered_a_bytes(shape, ring_plan, plan)
+                tile = (f"tile {64 * plan[0]}x128, {plan[1]} taps a unit, {plan[2]} K splits; "
+                        f"A moved into shared memory {win_bytes / 1e6:.2f} MB, "
+                        f"{ring_bytes / 1e6:.2f} MB by the ring's gathers")
+                totals["a_ring"] += ring_bytes
+                totals["a_window"] += win_bytes
+            else:
+                tile = f"tile {64 * ring_plan[0]}x{ring_plan[1]}, {ring_plan[2]} K splits"
             log(f"B2 {dtype} scale {scale} layer {layer} {kind} (g={g}, B={b}, Qp={qp}, X={x_dim}, "
-                f"Y={y_dim}, kf={kf}, s={s}, q={q}; tile {64 * tile[0]}x{tile[1]}, "
-                f"{tile[2]} K splits): max|kernel - plain| {d:.3e} ({d / scale_y:.1e} of "
+                f"Y={y_dim}, kf={kf}, s={s}, q={q}; {tile}): max|kernel - plain| {d:.3e} "
+                f"({d / scale_y:.1e} of "
                 f"max|y|); device time kernel {t['ms'] * 1e3:.1f} us "
                 f"({flop / t['ms'] / 1e9:.1f} TFLOP/s), plain {t['plain_ms'] * 1e3:.1f} us, "
                 f"grouped conv1d {t['library_ms'] * 1e3:.1f} us; "
@@ -545,7 +604,9 @@ def phase_tap_dots(torch, device, card, dtype="f32"):
         f"{totals['bound_ms']:.3f} ms ({rate}; {totals['bound_ms'] / totals['ms']:.1%}"
         f" reached), f32-FMA bound {totals['fma_bound_ms']:.3f} ms "
         f"({totals['fma_bound_ms'] / totals['ms']:.1%}); max|kernel - twin| {worst:.3e}"
-        + (f", max excess over one bf16 ulp {worst_excess:.3e}" if bf16 else "") + f" [{card}]")
+        + (f", max excess over one bf16 ulp {worst_excess:.3e}; A moved into shared memory "
+           f"{totals['a_window'] / 1e6:.1f} MB, {totals['a_ring'] / 1e6:.1f} MB by the ring's "
+           f"gathers" if bf16 else "") + f" [{card}]")
     return {"name": "gouter_kernel.gouter_tap_dots_kernel" + ("[bf16]" if bf16 else ""),
             "dtype": "bfloat16" if bf16 else "float32", "route": "cuda",
             "source": "neuraltexttospeech_torch/ops/csrc/gouter_kernel.cu",
@@ -569,13 +630,52 @@ def mas_bound_ms(batch, t_mel, t_text, out_lens):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+# One dependent step of MAS's chain: a warp shuffle and an f32 max, in
+# cycles (an assumed latency, not a measurement: the order of Hopper's
+# shuffle and FP32 pipeline latencies); ``mas_chain_floor_ms`` multiplies it
+# by the rows, the floor no schedule of the chain can go under.
+MAS_STEP_CYCLES = 30
+
+
+def mas_chain_floor_ms(t_mel, sm_mhz):
+    """The chain's floor: ``t_mel`` dependent rows, each one shuffle and max
+    (:data:`MAS_STEP_CYCLES`) at the card's SM clock."""
+    return t_mel * MAS_STEP_CYCLES / (sm_mhz * 1e3)
+
+
+def mas_phase_split(torch, mas_kernel, la, in_lens, out_lens):
+    """One probe launch with the kernel's time stamps: mean over blocks of
+    the forward, the backtrack and the zeros (from the kernel's start, µs by
+    ``%globaltimer``), the ones and the whole block, and the forward's
+    cycles per row (``clock64``)."""
+    b, t_mel, _ = la.shape
+    stamps = torch.zeros(b, mas_kernel.STAMPS, 2, dtype=torch.int64, device=la.device)
+    mas_kernel.maximum_path(la, in_lens, out_lens, stamps=stamps)
+    torch.cuda.synchronize()
+    ns, cyc = stamps[..., 1].double().cpu(), stamps[..., 0].double().cpu()
+    us = lambda k, j=0: float((ns[:, k] - ns[:, j]).mean()) / 1e3  # noqa: E731
+    return {"forward_us": us(1), "backtrack_us": us(2, 1), "zeros_us": us(3),
+            "ones_us": float((ns[:, 4] - ns[:, [2, 3]].max(dim=1).values).mean()) / 1e3,
+            "block_us": us(4), "cycles_a_row": float((cyc[:, 1] - cyc[:, 0]).mean()) / t_mel}
+
+
+def sm_clock_mhz():
+    """The card's SM clock now and at most (nvidia-smi)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    now, most = (float(v) for v in out.split(","))
+    return now, most
+
+
 def phase_mas(torch, device, card):
     """MAS: the kernel against its plain twin on the card (bit for bit) at
     the ``bench.py`` FastPitch shape (16 × 768 mel frames × 128 tokens), at
     16 copies of the longest LJSpeech clip (870 × 192), both on log-softmax
     rows as FastPitch's aligner gives them, and at the Grad-TTS step's shape
     (``bench.py:519``: 16 × 512 × 160) on Grad-TTS's Gaussian log-prior of
-    random mu and mels; timed beside the twin and the bound. Returns the
+    random mu and mels; timed beside the twin and the bound, with the
+    kernel's own split into forward, backtrack and plane write. Returns the
     JSON record (the first shape)."""
     from neuraltexttospeech_torch.models.gradtts import gaussian_log_prior
     from neuraltexttospeech_torch.ops import mas_kernel
@@ -603,17 +703,35 @@ def phase_mas(torch, device, card):
         fns = {"kernel": lambda: mas_kernel.maximum_path(la, in_lens, out_lens),
                "plain": lambda: mas_kernel.maximum_path_reference(la, in_lens, out_lens)}
         ev = {"kernel": cuda_ms(fns["kernel"], 20), "plain": cuda_ms(fns["plain"], 3)}
-        dev = {"kernel": device_ms(torch, fns["kernel"], reps=10)}
-        # the MAS kernel's own time, from the same trace of 10 calls
-        own = sum(ms for ms, name in device_breakdown.last if "mas_kernel" in name) / 10
-        dev["plain"] = device_ms(torch, fns["plain"], reps=2)
+        device_ms(torch, fns["kernel"], reps=10)
+        # a call is one MAS kernel and nothing else: its device time is the
+        # kernel's, per kernel the trace recorded (a trace now and then
+        # misses one of its records)
+        others = [name for _, name in device_breakdown.last if "mas_kernel" not in name]
+        if others:
+            raise RuntimeError(f"a MAS call ran other kernels: {others}")
+        n_mas = sum(c for name, c in device_breakdown.counts.items() if "mas_kernel" in name)
+        dev = {"kernel": sum(ms for ms, _ in device_breakdown.last) / n_mas,
+               "plain": device_ms(torch, fns["plain"], reps=2)}
         bound_ms, bound_by = mas_bound_ms(b, t_mel, t_text, [t_mel] * b)
-        log(f"MAS {b}x{t_mel}x{t_text} ({what}): kernel == twin bit for bit; device time kernel "
-            f"{dev['kernel'] * 1e3:.2f} us (the MAS kernel itself {own * 1e3:.2f} us, the rest "
-            f"the wrapper's zero fill of the path), plain loop {dev['plain'] * 1e3:.1f} us; CUDA "
-            f"events over back-to-back calls kernel {ev['kernel'] * 1e3:.2f} us, plain "
-            f"{ev['plain'] * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us ({bound_by}), {bound_ms / dev['kernel']:.1%} of it "
-            f"reached; {t_mel} dependent rows, {dev['kernel'] / t_mel * 1e6:.1f} ns a row [{card}]")
+        split = mas_phase_split(torch, mas_kernel, la, in_lens, out_lens)
+        now_mhz, max_mhz = sm_clock_mhz()
+        floor_ms = mas_chain_floor_ms(t_mel, max_mhz)
+        log(f"MAS {b}x{t_mel}x{t_text} ({what}): kernel == twin bit for bit; device time of the "
+            f"call {dev['kernel'] * 1e3:.2f} us (one kernel a call, {n_mas} of 10 in the trace), "
+            f"plain loop {dev['plain'] * 1e3:.1f} us; CUDA events over "
+            f"back-to-back calls kernel {ev['kernel'] * 1e3:.2f} us, plain "
+            f"{ev['plain'] * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us ({bound_by}), "
+            f"{bound_ms / dev['kernel']:.1%} of it reached; the chain's floor {floor_ms * 1e3:.2f} "
+            f"us ({t_mel} rows x {MAS_STEP_CYCLES} cycles, one shuffle and max, at "
+            f"{max_mhz:.0f} MHz), {floor_ms / dev['kernel']:.1%} of it reached; "
+            f"{dev['kernel'] / t_mel * 1e6:.1f} ns a row [{card}]")
+        log(f"  MAS {b}x{t_mel}x{t_text} split (one probe launch with time stamps, mean over "
+            f"blocks): forward {split['forward_us']:.2f} us ({split['cycles_a_row']:.1f} cycles "
+            f"a row), backtrack {split['backtrack_us']:.2f} us, plane zeros done "
+            f"{split['zeros_us']:.2f} us after the start (beside the forward), ones "
+            f"{split['ones_us']:.2f} us; block {split['block_us']:.2f} us; SM clock "
+            f"{now_mhz:.0f} MHz of {max_mhz:.0f}")
         if record is None:
             record = {"name": "mas_kernel.maximum_path", "route": "cuda",
                       "source": "neuraltexttospeech_torch/ops/csrc/mas_kernel.cu",
@@ -1277,13 +1395,15 @@ def phase_train_timing(torch, trainer, card):
     busy, top = device_breakdown(torch, lambda: trainer.train_step(batch), top=8)
     b2 = sum(ms for ms, name in device_breakdown.last if any(k in name for k in B2_KERNELS))
     b1 = sum(ms for ms, name in device_breakdown.last if "mel_" in name and "_kernel" in name)
-    # B2's time counts its main kernel and its prologue, each once per call
+    # B2's time counts its main kernel (of either form) and its prologue,
+    # each once per call
     per_step = b2_launches_per_step(cfg.segment_size)
-    for kernel in B2_KERNELS[:2]:
-        n = sum(c for name, c in device_breakdown.counts.items() if kernel in name)
+    for kernels in (B2_MAIN_KERNELS, ("pack_weights_kernel",)):
+        n = sum(c for name, c in device_breakdown.counts.items()
+                if any(k in name for k in kernels))
         if n != per_step:
-            raise RuntimeError(f"the traced {mode} GAN step ran {kernel} {n} times, not "
-                               f"{per_step}: B2's time would be misread")
+            raise RuntimeError(f"the traced {mode} GAN step ran {' or '.join(kernels)} {n} "
+                               f"times, not {per_step}: B2's time would be misread")
     launches, copies, casts, attrs = launch_counts()
     log(f"  trace ({mode}): card busy {busy:.2f} ms of {wall * 1e3:.2f} ms wall (kernel times "
         f"sum to {device_breakdown.kernel_sum:.2f} ms), idle share "
@@ -3327,6 +3447,7 @@ def main():
     WORK.mkdir(parents=True)
     try:
         build_kernels()
+        phase_gpu_tests()
         b1 = phase_kernels(torch, device, smi)
         b2 = phase_tap_dots(torch, device, smi)
         b2_bf16 = phase_tap_dots(torch, device, smi, dtype="bf16")

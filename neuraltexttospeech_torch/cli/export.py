@@ -24,6 +24,7 @@ import torch
 from ..models.registry import (CONFIG_REGISTRY, MODEL_REGISTRY, WEIGHTS_FILE, config_from_dict,
                                config_to_dict, load_model_config)
 from ..train.checkpoint import checkpoint_dir
+from ..utils.device import resolve_device
 
 
 def parse_args(argv=None):
@@ -35,9 +36,11 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def load_export(path, device="cpu"):
+def load_export(path, device=None):
     """The model of an exported artifact (``path`` and its ``.json``) in
-    eval mode on ``device``. Returns (model, meta)."""
+    eval mode on ``device`` (:func:`~..utils.device.resolve_device`: the
+    card unless the caller asks for the CPU). Returns (model, meta)."""
+    device = resolve_device(device)
     path = pathlib.Path(path)
     meta = json.loads(path.with_suffix(".json").read_text())
     config = config_from_dict(CONFIG_REGISTRY[meta["model"]], meta["config"])

@@ -16,7 +16,10 @@ operands' type, is rounded once, as the Pallas body (:105-112) does. With
 design and bound are in that file): a prologue kernel writes the weights
 K-major and swizzled, f32 split into TF32 hi and lo parts
 (:func:`pack_weights`; twin :func:`pack_weights_reference`), then the main
-kernel runs at the tile :func:`plan_tiles` picks.
+kernel of the operands' form runs at the plan :func:`plan_tiles` (f32) or
+:func:`plan_window` (bf16) picks. The bf16 kernel loads each tile's A
+window once per unit of K and runs all the unit's taps against it;
+:func:`window_segments` and :func:`window_row` are its index arithmetic.
 :func:`gouter_tap_dots_reference` is the per-tap ``torch.matmul`` loop of
 ``fastconv.py:62-67`` in f32; :func:`gouter_tap_dots_kernel` takes it only
 for a CPU tensor. For a CUDA tensor it launches the kernels or raises: they
@@ -34,7 +37,8 @@ import torch
 from . import _build
 
 __all__ = ["gouter_tap_dots_kernel", "gouter_tap_dots_reference", "pack_weights",
-           "pack_weights_reference", "plan_tiles", "k_block", "tf32_round", "SOURCE"]
+           "pack_weights_reference", "plan_tiles", "plan_window", "window_segments",
+           "window_row", "window_rows", "k_block", "tf32_round", "SOURCE"]
 
 SOURCE = "gouter_kernel.cu"
 _WIDTHS = (128, 256, 512)  # X and Y the kernel takes
@@ -42,6 +46,14 @@ _GROUPS = (4, 16)
 _MAX_TAPS = 21
 _DTYPES = (torch.float32, torch.bfloat16)
 _TILES = ((2, 128), (1, 64))  # (warpgroups of 64 rows, columns): 128x128, then 64x64
+# the bf16 kernel's tiles: 64-row tiles by 128 columns, 256 rows (two
+# warpgroups of two 64-row tiles), 128 and 64
+_WIN_TILES = (4, 2, 1)
+_WIN_PITCH = 144   # bytes per window row in shared memory
+_B_STAGES = 6      # the bf16 kernel's B ring, at least,
+_MAX_B_STAGES = 12  # and at most, as room is left beside
+_WIN_BUFS = 3      # its window buffers
+_MAX_SMEM = 232448
 
 
 def k_block(dtype: torch.dtype) -> int:
@@ -106,8 +118,10 @@ def _lib():
     lib = _build.load(SOURCE)
     lib.gouter_pack_weights.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
                                         + [ctypes.c_void_p])
-    lib.gouter_tap_dots.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
-    for fn in (lib.gouter_pack_weights, lib.gouter_tap_dots):
+    lib.gouter_tap_dots.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+    lib.gouter_window_taps_bf16.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
+                                            + [ctypes.c_void_p])
+    for fn in (lib.gouter_pack_weights, lib.gouter_tap_dots, lib.gouter_window_taps_bf16):
         fn.restype = ctypes.c_int
     return lib
 
@@ -130,6 +144,78 @@ def plan_tiles(g: int, m: int, n: int, n_kblocks: int, sms: int = 132):
     splits = min(n_kblocks, -(-sms // blocks))
     per = -(-n_kblocks // splits)
     return nwg, bn, -(-n_kblocks // per)
+
+
+def window_segments(m0: int, m_end: int, q: int, qp: int, mf0: int, taps: int, s: int):
+    """The loads of one window of the bf16 kernel: output rows ``[m0,
+    m_end)`` of the ``B*q``, taps ``mf0 .. mf0 + taps - 1``. One entry per
+    batch segment the tile touches, ``(xp_row, window_row, rows)``: ``rows``
+    rows of ``xp[g]`` viewed ``[B*Qp, X]`` from ``xp_row`` go to the window
+    from ``window_row``, one segment after another."""
+    span = (taps - 1) * s
+    b_first, b_last = m0 // q, (m_end - 1) // q
+    segments, w = [], 0
+    for b in range(b_first, b_last + 1):
+        t_lo = m0 - b * q if b == b_first else 0
+        t_hi = m_end - 1 - b * q if b == b_last else q - 1
+        rows = t_hi - t_lo + 1 + span
+        segments.append((b * qp + t_lo + mf0 * s, w, rows))
+        w += rows
+    return segments
+
+
+def window_row(r: int, m0: int, q: int, span: int) -> int:
+    """The window row that output row ``r`` of the tile at ``m0`` reads at
+    the unit's first tap (tap ``mf0 + j`` reads ``j*s`` rows further);
+    ``span = (taps - 1)*s``."""
+    return (r - m0) + (r // q - m0 // q) * span
+
+
+@functools.lru_cache(maxsize=None)
+def window_rows(m: int, q: int, bm: int, span: int) -> int:
+    """The most window rows any tile of ``bm`` of the ``m = B*q`` rows needs
+    (cached: a training step asks for the same shapes every step)."""
+    most = 0
+    for m0 in range(0, m, bm):
+        m_end = min(m0 + bm, m)
+        most = max(most, m_end - m0 + ((m_end - 1) // q - m0 // q + 1) * span)
+    return most
+
+
+def _window_capacity() -> int:
+    """Window rows that fit one of the kernel's window buffers beside its
+    smallest B ring (of 128-column tiles)."""
+    barriers = (2 * _MAX_B_STAGES + 2 * _WIN_BUFS) * 8
+    return (_MAX_SMEM - 1024 - barriers - _B_STAGES * 128 * 128) // (_WIN_BUFS * _WIN_PITCH)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_window(g: int, m: int, n: int, q: int, kf: int, s: int, kc: int, sms: int = 132):
+    """The bf16 kernel's launch for a call of M = B*q rows, N columns, kf
+    taps of stride s over X = kc: ``(64-row tiles, taps per unit, splits)``.
+    The tallest of 256, 128 and 64 rows (by 128 columns) that gives at least
+    half as many blocks as SMs and whose window holds all kf taps; where
+    even 64 rows give fewer blocks, the units of K (64 values of X by a
+    group of taps) are split over blocks until they do. (Measured on an
+    H100 at the 30 v1 MSD shapes, every tile with splits of 1 and 2, and
+    64-column tiles too: tall tiles read each weight tile for more rows, and
+    a card a quarter full could not fill itself.)"""
+    def blocks(tiles):
+        return -(-m // (64 * tiles)) * (n // 128) * g
+
+    cap = _window_capacity()
+    taps = kf
+    for tiles in _WIN_TILES:
+        if 2 * blocks(tiles) >= sms and window_rows(m, q, 64 * tiles, (kf - 1) * s) <= cap:
+            break
+    else:
+        tiles = 1
+        while taps > 1 and window_rows(m, q, 64, (taps - 1) * s) > cap:
+            taps -= 1
+    n_units = kc // 64 * -(-kf // taps)
+    splits = min(n_units, -(-sms // (2 * blocks(tiles))))
+    per = -(-n_units // splits)
+    return tiles, taps, -(-n_units // per)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -201,14 +287,20 @@ def gouter_tap_dots_kernel(xp: torch.Tensor, wf: torch.Tensor, s: int, q: int,
     if batch == 0:
         return y
     wk = pack_weights(wf, flip_t)
-    nwg, bn, splits = plan_tiles(g, batch * q, n, kf * kc // k_block(xp.dtype),
-                                 _sm_count(xp.device))
-    partial = (torch.empty((splits, g, batch * q, n), dtype=torch.float32, device=xp.device)
+    m, sms = batch * q, _sm_count(xp.device)
+    if bf16:
+        tiles, taps, splits = plan_window(g, m, n, q, kf, s, kc, sms)
+    else:
+        nwg, bn, splits = plan_tiles(g, m, n, kf * kc // k_block(xp.dtype), sms)
+    partial = (torch.empty((splits, g, m, n), dtype=torch.float32, device=xp.device)
                if splits > 1 else None)
-    err = _lib().gouter_tap_dots(xp.data_ptr(), wk.data_ptr(),
-                                 None if partial is None else partial.data_ptr(), y.data_ptr(),
-                                 g, batch, qp, kc, n, kf, s, q, nwg, bn, splits, int(bf16),
-                                 xp.device.index, _stream(xp))
+    args = (xp.data_ptr(), wk.data_ptr(), None if partial is None else partial.data_ptr(),
+            y.data_ptr(), g, batch, qp, kc, n, kf, s, q)
+    if bf16:
+        err = _lib().gouter_window_taps_bf16(*args, tiles, taps, splits, xp.device.index,
+                                             _stream(xp))
+    else:
+        err = _lib().gouter_tap_dots(*args, nwg, bn, splits, xp.device.index, _stream(xp))
     if err != 0:
         raise RuntimeError(f"tap-window kernel launch failed: CUDA error {err}")
     gouter_tap_dots_kernel.launches += 1

@@ -3,7 +3,8 @@
 Counterpart of ``neuraltexttospeech_tpu/ops/mas.py::maximum_path`` (:36-111),
 which is two ``lax.scan``s (a Viterbi forward over mel rows, then a
 backtrack) and no Pallas kernel. ``csrc/mas_kernel.cu`` computes it in one
-launch, one block per utterance (its design and bound are in that file).
+launch, one block per utterance, and writes the whole path itself (its
+design and bound are in that file).
 :func:`maximum_path_reference` is the same recursion as a PyTorch loop over
 the rows: several launches a row on the card, which is why the kernel exists.
 
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -28,7 +30,8 @@ from . import _build
 __all__ = ["maximum_path", "maximum_path_reference", "SOURCE", "MAX_TEXT"]
 
 SOURCE = "mas_kernel.cu"
-MAX_TEXT = 1024  # one thread per text position, one block per utterance
+MAX_TEXT = 1024  # 32 text positions a lane of the chain's warp at most
+STAMPS = 5  # the kernel's time stamps: start, forward, backtrack, zeros, end
 _NEG = -1e9
 
 
@@ -67,11 +70,13 @@ def maximum_path_reference(log_attn: torch.Tensor, in_lens: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=1)
-def _launcher():
-    fn = _build.load(SOURCE).mas_maximum_path
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = _build.load(SOURCE)
+    lib.mas_maximum_path.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.mas_maximum_path.restype = ctypes.c_int
+    lib.mas_scratch_words.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.mas_scratch_words.restype = ctypes.c_longlong
+    return lib
 
 
 def _lengths(lens: torch.Tensor, batch: int, device) -> torch.Tensor:
@@ -81,14 +86,17 @@ def _lengths(lens: torch.Tensor, batch: int, device) -> torch.Tensor:
 
 
 def maximum_path(log_attn: torch.Tensor, in_lens: torch.Tensor,
-                 out_lens: torch.Tensor) -> torch.Tensor:
+                 out_lens: torch.Tensor, stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Batched width-1 MAS: [B, T_mel, T_text] -> f32 hard alignment, one
     one-hot row per mel frame below ``out_lens``.
 
     A CUDA tensor goes through the kernel (float32, T_text <= 1024; it raises
-    on anything else); a CPU tensor goes through
-    :func:`maximum_path_reference`. ``maximum_path.launches`` counts the
-    kernel's launches.
+    on anything else), which writes every element of the path; a CPU tensor
+    goes through :func:`maximum_path_reference`. ``maximum_path.launches``
+    counts the kernel's launches. ``stamps``, a CUDA int64 ``[B, STAMPS, 2]``,
+    asks the kernel for its phase times (``clock64`` and ``%globaltimer``
+    at its start and after the forward, the backtrack, the zeros and the
+    ones); by default it records none.
     """
     if not log_attn.is_cuda:
         return maximum_path_reference(log_attn, in_lens, out_lens)
@@ -99,15 +107,22 @@ def maximum_path(log_attn: torch.Tensor, in_lens: torch.Tensor,
     if not 0 < T_text <= MAX_TEXT:
         raise ValueError(f"T_text = {T_text}: the MAS kernel takes 1..{MAX_TEXT} text positions")
     dev = log_attn.device
+    if stamps is not None and (stamps.shape != (B, STAMPS, 2) or stamps.dtype != torch.int64
+                               or stamps.device != dev or not stamps.is_contiguous()):
+        raise ValueError(f"stamps must be a contiguous int64 [{B}, {STAMPS}, 2] on {dev}")
     log_attn = log_attn.detach().contiguous()
     in_lens, out_lens = _lengths(in_lens, B, dev), _lengths(out_lens, B, dev)
-    path = torch.zeros((B, T_mel, T_text), dtype=torch.float32, device=dev)
+    path = torch.empty((B, T_mel, T_text), dtype=torch.float32, device=dev)
     if B == 0 or T_mel == 0:
         return path
-    choose = torch.empty((B, T_mel, T_text), dtype=torch.uint8, device=dev)
+    lib = _lib()
+    words = lib.mas_scratch_words(T_mel, T_text)
+    scratch = torch.empty(B * words, dtype=torch.int32, device=dev) if words else None
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _launcher()(log_attn.data_ptr(), in_lens.data_ptr(), out_lens.data_ptr(),
-                      choose.data_ptr(), path.data_ptr(), B, T_mel, T_text, dev.index, stream)
+    err = lib.mas_maximum_path(log_attn.data_ptr(), in_lens.data_ptr(), out_lens.data_ptr(),
+                               path.data_ptr(), None if scratch is None else scratch.data_ptr(),
+                               None if stamps is None else stamps.data_ptr(), B, T_mel, T_text,
+                               dev.index, stream)
     if err != 0:
         raise RuntimeError(f"MAS kernel launch failed: CUDA error {err}")
     maximum_path.launches += 1

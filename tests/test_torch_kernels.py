@@ -434,14 +434,72 @@ def test_bf16_weight_pack_twin_is_flip_transpose_of_wf(flip_t):
 
 @pytest.mark.parametrize("shape", B2_FWD_SHAPES + B2_DX_SHAPES)
 def test_bf16_tile_plan_fills_the_card(shape):
-    """With bf16's K blocks of 64, every call still launches at least one
-    block per SM, or splits K as far as it goes."""
-    g, b, _, x_dim, y_dim, kf, _, q = shape
-    n_kb = kf * x_dim // gouter_kernel.k_block(torch.bfloat16)
-    nwg, bn, splits = gouter_kernel.plan_tiles(g, b * q, y_dim, n_kb)
-    blocks = -(-b * q // (64 * nwg)) * (y_dim // bn) * g * splits
-    assert 1 <= splits <= n_kb and (blocks >= 132 or splits == n_kb)
-    assert (splits - 1) * -(-n_kb // splits) < n_kb
+    """The bf16 kernel's plan launches blocks for at least half the SMs (132
+    on an H100; its window kernel measured fastest so), or splits its units
+    of K (64 values of X by a group of taps) as far as they go, with no
+    empty split; it keeps tiles of 128 rows or more wherever they reach
+    that; every unit takes all kf taps, and the largest window fits its
+    buffer."""
+    g, b, _, x_dim, y_dim, kf, s, q = shape
+    tiles, taps, splits = gouter_kernel.plan_window(g, b * q, y_dim, q, kf, s, x_dim)
+    n_units = x_dim // 64 * -(-kf // taps)
+    blocks = -(-b * q // (64 * tiles)) * (y_dim // 128) * g * splits
+    assert tiles in gouter_kernel._WIN_TILES and taps == kf
+    assert 1 <= splits <= n_units and (2 * blocks >= 132 or splits == n_units)
+    if 2 * -(-b * q // 128) * (y_dim // 128) * g >= 132:
+        assert tiles >= 2 and splits == 1
+    assert (splits - 1) * -(-n_units // splits) < n_units
+    span = (taps - 1) * s
+    assert gouter_kernel.window_rows(b * q, q, 64 * tiles, span) <= gouter_kernel._window_capacity()
+
+
+# the window map at tiles that cross 1 to 8 batch boundaries: q = 17 puts 9
+# segments into a 128-row tile, and its taps are strided (s = 3)
+WINDOW_SHAPES = B2_SHAPES + B2_DX_SHAPES + [(4, 16, 29, 128, 128, 5, 3, 17)]
+
+
+@pytest.mark.parametrize("shape", WINDOW_SHAPES)
+def test_window_rows_are_the_twins_gather(shape):
+    """The bf16 kernel's index arithmetic: a tile's window, loaded segment by
+    segment (``window_segments``), read at ``window_row(r) + j*s`` for each
+    tap, gives every output row the xp row that the twin gathers for that
+    tap, at 256-, 128- and 64-row tiles, with all taps in one unit and in groups
+    of two; no window is longer than ``window_rows`` says."""
+    _, b, qp, _, _, kf, s, q = shape
+    m = b * q
+    # one group, one column holding each row's own index: the twin's gather
+    # for tap mf is its output with the one-hot weight e_mf
+    xp = torch.arange(b * qp, dtype=torch.float32).reshape(1, b, qp, 1)
+    want = []
+    for mf in range(kf):
+        wf = torch.zeros(kf, 1, 1, 1)
+        wf[mf] = 1.0
+        want.append(gouter_kernel.gouter_tap_dots_reference(xp, wf, s, q).reshape(m))
+    flat = xp.reshape(-1)
+    crossed = set()
+    for bm in (256, 128, 64):
+        for per in sorted({kf, min(2, kf)}):
+            span_full = (per - 1) * s
+            most = gouter_kernel.window_rows(m, q, bm, span_full)
+            for m0 in range(0, m, bm):
+                m_end = min(m0 + bm, m)
+                r = torch.arange(m0, m_end)
+                crossed.add((m_end - 1) // q - m0 // q)
+                for mf0 in range(0, kf, per):
+                    taps = min(per, kf - mf0)
+                    span = (taps - 1) * s
+                    segs = gouter_kernel.window_segments(m0, m_end, q, qp, mf0, taps, s)
+                    window = torch.cat([flat[xr:xr + n] for xr, _, n in segs])
+                    assert [w for _, w, _ in segs] == [sum(n for _, _, n in segs[:i])
+                                                      for i in range(len(segs))]
+                    assert window.numel() <= most
+                    row = gouter_kernel.window_row(r, m0, q, span)
+                    for j in range(taps):
+                        assert torch.equal(window[row + j * s], want[mf0 + j][r])
+    if q == 64:  # a 128-row tile holds two segments
+        assert 1 in crossed, crossed
+    if shape == WINDOW_SHAPES[-1]:
+        assert 8 in crossed, crossed
 
 
 @pytest.mark.gpu
@@ -462,6 +520,34 @@ def test_cuda_bf16_tap_dots_match_plain_twin(cuda_device, shape, flip_t):
     assert got.dtype == torch.bfloat16
     want = gouter_kernel.gouter_tap_dots_reference(xp, wf, s, q, flip_t)
     assert_within_one_bf16_ulp(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tiles", [4, 2, 1])
+@pytest.mark.parametrize("shape, flip_t", [((16, 16, 36, 128, 128, 21, 1, 16), False),
+                                           ((4, 3, 29, 128, 512, 5, 3, 17), False),
+                                           ((16, 16, 44, 128, 256, 7, 1, 38), True)])
+def test_cuda_bf16_every_plan_matches_twin(cuda_device, monkeypatch, shape, flip_t, tiles):
+    """Every tile of the bf16 kernel, with all taps in one unit, one tap a
+    unit and two (those whose window fits), unsplit and with its units split
+    over blocks (the sum kernel's path), at the third scale's 21 taps, the
+    strided shape and a ragged dx shape."""
+    xp, wf, s, q = _tap_inputs(shape, flip_t, cuda_device)
+    xp, wf = xp.bfloat16(), wf.bfloat16()
+    want = gouter_kernel.gouter_tap_dots_reference(xp, wf, s, q, flip_t)
+    kf, x_dim = wf.shape[0], xp.shape[3]
+    m = xp.shape[1] * q
+    for taps in sorted({kf, 1, 2}):
+        if (gouter_kernel.window_rows(m, q, 64 * tiles, (taps - 1) * s)
+                > gouter_kernel._window_capacity()):
+            continue
+        n_units = x_dim // 64 * -(-kf // taps)
+        for splits in sorted({1, 2, n_units}):
+            monkeypatch.setattr(gouter_kernel, "plan_window",
+                                lambda *_, p=(tiles, taps, splits): p)
+            got = gouter_kernel.gouter_tap_dots_kernel(xp, wf, s, q, flip_t)
+            torch.cuda.synchronize()
+            assert_within_one_bf16_ulp(got, want)
 
 
 @pytest.mark.gpu
@@ -529,14 +615,19 @@ def test_mas_twin_on_cpu_counts_no_launch_and_matches_the_oracle():
     np.testing.assert_array_equal(got[0].numpy(), mas.mas_width1_numpy(la[0].numpy()))
 
 
-# (B, T_mel, T_text, in_lens, out_lens): one symbol, a full block of 1024
-# threads, a width off the warp, mel lengths below and past T_mel, 0 frames
+# (B, T_mel, T_text, in_lens, out_lens): one symbol, a full warp's 1024
+# positions (its choice bits in the global scratch), widths one off a word
+# of 32 and past four words, text length 1, mel lengths below and past
+# T_mel, 0 frames
 MAS_SHAPES = [
     (3, 50, 1, [1, 1, 1], [50, 20, 1]),
     (2, 1100, 1024, [1024, 700], [1100, 1050]),
     (4, 97, 45, [45, 30, 2, 45], [97, 60, 5, 120]),
     (16, 768, 128, [128] * 8 + [100] * 8, [768] * 8 + [700] * 8),
     (2, 870, 192, [192, 160], [870, 0]),
+    (3, 200, 31, [31, 1, 17], [200, 150, 3]),
+    (2, 300, 33, [33, 20], [250, 300]),
+    (4, 401, 130, [130, 129, 1, 64], [401, 399, 200, 1]),
 ]
 
 
@@ -554,6 +645,51 @@ def test_cuda_mas_kernel_equals_twin_bit_for_bit(cuda_device, case):
     want = mas_kernel.maximum_path_reference(la, in_lens, out_lens)
     assert torch.equal(got, want)
     assert torch.equal(got.sum(dim=(1, 2)).long(), torch.clamp(out_lens, max=T_mel).long())
+
+
+@pytest.mark.gpu
+def test_cuda_mas_kernel_bits_go_to_global_scratch_only_when_too_large(cuda_device):
+    """The choice bits live in shared memory at the training shapes and in
+    the global scratch at 1100 x 1024 (MAS_SHAPES[1]), a path of the same
+    kernel that the bit-for-bit test above runs."""
+    words = mas_kernel._lib().mas_scratch_words
+    assert words(768, 128) == words(870, 192) == words(512, 160) == 0
+    assert words(1100, 1024) > 0
+
+
+@pytest.mark.gpu
+def test_cuda_mas_is_one_launch_and_nothing_else(cuda_device):
+    """One kernel launch a call, counted once: no zero fill, no scratch, no
+    copy beside it (int32 lengths on the card need no cast)."""
+    la = _log_attn((4, 200, 60), 3).to(cuda_device)
+    lens = (torch.tensor([60, 50, 1, 33], dtype=torch.int32, device=cuda_device),
+            torch.tensor([200, 180, 7, 200], dtype=torch.int32, device=cuda_device))
+    mas_kernel.maximum_path(la, *lens)
+    torch.cuda.synchronize()
+    before = mas_kernel.maximum_path.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = mas_kernel.maximum_path(la, *lens)
+        torch.cuda.synchronize()
+    assert mas_kernel.maximum_path.launches == before + 1
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    assert len(kernels) == 1 and "mas_kernel" in kernels[0], kernels
+    assert torch.equal(got, mas_kernel.maximum_path_reference(la, *lens))
+
+
+@pytest.mark.gpu
+def test_cuda_mas_kernel_stamps_its_phases(cuda_device):
+    """With ``stamps`` the kernel records its phase times in order, and the
+    path is the same."""
+    la = _log_attn((2, 300, 128), 4).to(cuda_device)
+    lens = (torch.tensor([128, 90], device=cuda_device), torch.tensor([300, 250], device=cuda_device))
+    stamps = torch.zeros(2, mas_kernel.STAMPS, 2, dtype=torch.int64, device=cuda_device)
+    got = mas_kernel.maximum_path(la, *lens, stamps=stamps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mas_kernel.maximum_path_reference(la, *lens))
+    ns = stamps[..., 1].cpu()
+    assert (ns[:, 0] <= ns[:, 1]).all() and (ns[:, 1] <= ns[:, 2]).all()
+    assert (ns[:, 2] <= ns[:, 4]).all() and (ns[:, 3] <= ns[:, 4]).all()
 
 
 @pytest.mark.gpu

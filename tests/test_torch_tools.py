@@ -225,7 +225,7 @@ def test_export_round_trips(corpus, tmp_path):
     assert meta == json.loads(art.with_suffix(".json").read_text())
     assert (meta["model"], meta["step"], meta["config"]["symbols_embedding_dim"]) == (
         "FastPitch", 12, 64)
-    model, _ = export.load_export(art)
+    model, _ = export.load_export(art, device="cpu")
     want, _ = load_checkpoint(run / "checkpoints" / "12", "FastPitch", torch.device("cpu"))
     text = torch.randint(1, 148, (2, 16), generator=torch.Generator().manual_seed(2))
     with torch.no_grad():
@@ -234,6 +234,22 @@ def test_export_round_trips(corpus, tmp_path):
             torch.testing.assert_close(got, ref, rtol=0, atol=0)
     with pytest.raises(SystemExit, match="holds a FastPitch"):
         export.main(["--model", "Flowtron", "--checkpoint", str(run), "-o", str(art)])
+
+
+def test_load_export_without_device_raises_when_no_gpu(tmp_path, monkeypatch):
+    """``load_export`` follows the entry points' device policy: no device
+    means the card, and without one it raises rather than load on the CPU."""
+    cfg = port_fp.FastPitchConfig(**FP_SMALL)
+    run = tmp_path / "run"
+    save_checkpoint(run / "checkpoints" / "1", "FastPitch", cfg,
+                    port_fp.FastPitch(cfg).state_dict())
+    art = tmp_path / "fastpitch.pt"
+    export.main(["--model", "FastPitch", "--checkpoint", str(run), "-o", str(art)])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        export.load_export(art)
+    model, _ = export.load_export(art, device="cpu")
+    assert next(model.parameters()).device.type == "cpu"
 
 
 @pytest.mark.parametrize("tool, argv", [

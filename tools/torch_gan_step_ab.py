@@ -2,13 +2,14 @@
 """Time the PyTorch port's v1 GAN step in a given checkout, to compare two
 checkouts on one card.
 
-    python3 tools/torch_gan_step_ab.py [--root DIR] [--mesh]
+    python3 tools/torch_gan_step_ab.py [--root DIR] [--amp] [--mesh]
 
 Imports ``neuraltexttospeech_torch`` from DIR (default: this checkout),
 builds its kernels and runs ``chip_smoke.py``'s GAN-step timing on one HiFi-GAN
 v1 trainer (batch 16 × 8192, f32, TF32 off, random weights): wall ms and
 samples/s over 3 steps, the card's busy time and idle share, B2's share of
-the kernel time, from this checkout's ``chip_smoke.py``. Run it for the two
+the kernel time, from this checkout's ``chip_smoke.py``; with ``--amp`` the
+bf16 step (the trainer CLI's ``--amp``) instead. Run it for the two
 checkouts in turns in one call (parent, change, change, parent), since the
 host's speed, which sets the step's wall time, differs between machines.
 
@@ -29,9 +30,13 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", type=pathlib.Path, default=ROOT,
                         help="checkout whose neuraltexttospeech_torch is timed")
+    parser.add_argument("--amp", action="store_true",
+                        help="time the bf16 step (the trainer CLI's --amp) instead of f32")
     parser.add_argument("--mesh", action="store_true",
                         help="time the plain step against the step on a one-rank mesh")
     args = parser.parse_args()
+    if args.amp and args.mesh:
+        parser.error("--mesh times the f32 step only")
     import torch
 
     if not torch.cuda.is_available():
@@ -55,7 +60,9 @@ def main():
     chip_smoke.log(f"checkout {root}")
     device = torch.device("cuda", 0)
     if not args.mesh:
-        chip_smoke.phase_train_timing(torch, HiFiGANTrainer(HiFiGANConfig.v1(), device), card)
+        dtype = torch.bfloat16 if args.amp else None
+        chip_smoke.phase_train_timing(torch, HiFiGANTrainer(HiFiGANConfig.v1(), device, dtype=dtype),
+                                      card)
         return 0
     import socket
 
