@@ -123,6 +123,13 @@ Phases, each raising on failure:
    (BatchNorm) and GAN steps and TP = 2 FastPitch held to the one-process
    step, with each rank's B1, B2 and MAS launches; the host-fed FastPitch
    CLI loop (``tools/torch_cli_throughput.py``, 2 epochs × 8 steps).
+10. Serving over several devices (``utils/serving.py``): the six text →
+   mel serving loops with HiFi-GAN v1 at full width on 8 sentences, on
+   ``[cuda:0]`` and on ``[cuda:0, cuda:0]`` (two replicas, two host
+   threads), held to each other, FastPitch also with ``--amp``; the trace
+   tools (``tools/torch_trace_capture.py``, ``tools/torch_trace_breakdown.py``)
+   on the bf16 GAN step (B2 bf16 ×90, B1 ×3) and FastPitch inference; and
+   ``tools/torch_audio_compare.py`` on a 10 s wav, B1 on the card.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -300,11 +307,14 @@ def build_kernels():
 
 
 def phase_gpu_tests():
-    """The kernels' unit tests on the card (``tests/test_torch_kernels.py``,
-    the ``gpu``-marked ones: each kernel against its twin at the main path's
-    shapes and at its edges)."""
+    """The ``gpu``-marked tests on the card: the kernels' (``tests/test_torch_kernels.py``:
+    each kernel against its twin at the main path's shapes and at its edges)
+    and serving's (``tests/test_torch_serving.py``: no ``--device`` means every
+    visible card)."""
     t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", "pytest", str(ROOT / "tests" / "test_torch_kernels.py"),
+    out = subprocess.run([sys.executable, "-m", "pytest",
+                          str(ROOT / "tests" / "test_torch_kernels.py"),
+                          str(ROOT / "tests" / "test_torch_serving.py"),
                           "--noconftest", "-m", "gpu", "-q", "-p", "no:cacheprovider"],
                          cwd=ROOT, capture_output=True, text=True, timeout=900)
     lines = out.stdout.strip().splitlines()
@@ -1240,46 +1250,29 @@ def phase_reference(torch, device):
 def device_breakdown(torch, fn, top=6):
     """One traced call of ``fn``: the card's busy time (ms, the union of its
     kernels' intervals, so kernels that overlap count once) and the kernels
-    that took most time, as ``[(ms, name)]``. Every kernel's summed time, the
-    sum over all of them and the number of device events stay on
+    that took most time, as ``[(ms, name)]``, read by
+    ``utils/profiling.py::breakdown``. Every kernel's summed time, the sum over
+    all of them and the number of device events stay on
     ``device_breakdown.last``, ``.kernel_sum`` and ``.launches``, each
     kernel's count on ``.counts``, the host's CUDA runtime calls on
-    ``.runtime`` and its aten ops' counts on ``.ops``."""
-    from torch.autograd import DeviceType
+    ``.runtime``, its aten ops' counts on ``.ops`` and the whole
+    ``Breakdown`` on ``.result``."""
+    from neuraltexttospeech_torch.utils.profiling import breakdown
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-
-    # the profiler's raw records: building its FunctionEvents (``key_averages``,
-    # ``events``) took 17 s for a trace of 11k launches, these are read in one
-    kernel, ops, runtime, spans = {}, {}, {}, []
-    for e in prof.profiler.kineto_results.events():
-        name, ms = e.name(), e.duration_ns() / 1e6
-        if e.device_type() == DeviceType.CUDA:
-            if e.is_user_annotation():  # GPU user annotations are ranges, not kernels
-                continue
-            total, count = kernel.get(name, (0.0, 0))
-            kernel[name] = (total + ms, count + 1)
-            spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
-        elif name.startswith("aten::"):
-            ops[name] = ops.get(name, 0) + 1
-        elif name.startswith(("cuda", "cu")):
-            count, total = runtime.get(name, (0, 0.0))
-            runtime[name] = (count + 1, total + ms)
-    busy, end = 0, float("-inf")
-    for start, stop in sorted(spans):
-        busy += max(0, stop - max(start, end))
-        end = max(end, stop)
-    kernels = [(ms, name) for name, (ms, _) in kernel.items()]
+    b = breakdown(prof)
+    kernels = [(ms, name) for name, (ms, _) in b.kernels.items()]
+    device_breakdown.result = b
     device_breakdown.last = kernels
-    device_breakdown.kernel_sum = sum(ms for ms, _ in kernels)
-    device_breakdown.launches = len(spans)
-    device_breakdown.counts = {name: count for name, (_, count) in kernel.items()}
-    device_breakdown.ops = ops
-    device_breakdown.runtime = runtime  # host side: CUDA runtime calls, (count, ms)
-    return busy / 1e6, sorted(kernels, reverse=True)[:top]
+    device_breakdown.kernel_sum = b.kernel_sum_ms
+    device_breakdown.launches = b.launches
+    device_breakdown.counts = {name: count for name, (_, count) in b.kernels.items()}
+    device_breakdown.ops = b.ops
+    device_breakdown.runtime = b.runtime  # host side: CUDA runtime calls, (count, ms)
+    return b.busy_ms, sorted(kernels, reverse=True)[:top]
 
 
 def phase_timing(torch, device, card):
@@ -3427,6 +3420,228 @@ def phase_parallel(torch, device, card):
     log(f"parallel: the phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+def serving_models(torch, device):
+    """The six text → mel families at full width with random weights from a
+    seed, each as its serving loop's ``synthesize`` takes it, with the
+    sentences each one's CLI front end encodes; and a HiFi-GAN v1."""
+    from neuraltexttospeech_torch.cli import gradtts_infer
+    from neuraltexttospeech_torch.cli.talknet_train import HEADS
+    from neuraltexttospeech_torch.models.fastpitch import FastPitchConfig
+    from neuraltexttospeech_torch.models.fastspeech2 import FastSpeech2, FastSpeech2Config
+    from neuraltexttospeech_torch.models.flowtron import Flowtron, FlowtronConfig
+    from neuraltexttospeech_torch.models.gradtts import GradTTSConfig
+    from neuraltexttospeech_torch.models.hifigan import Generator, HiFiGANConfig
+    from neuraltexttospeech_torch.models.tacotron2 import Tacotron2, Tacotron2Config
+    from neuraltexttospeech_torch.models.talknet import TalkNet2Config
+    from neuraltexttospeech_torch.text.processing import TextProcessing
+
+    lines = SENTENCES[:8]
+    v2 = TextProcessing("english_basic", ["english_cleaners_v2"], p_arpabet=0.0)
+    basic = TextProcessing("english_basic", ["english_cleaners"], p_arpabet=0.0)
+    encode = lambda tp: [np.asarray(tp.encode_text(l), np.int32) for l in lines]  # noqa: E731
+    models = {"fastpitch": random_fastpitch(FastPitchConfig(), 0, device)}
+    fs2 = random_init_(FastSpeech2(FastSpeech2Config()).to(device), 101, device).eval()
+    heads = tuple(random_init_(cls(TalkNet2Config()).to(device), 102 + i, device).eval()
+                  for i, cls in enumerate(HEADS.values()))
+    fl = random_init_(Flowtron(FlowtronConfig()).to(device), 105, device).eval()
+    # 400 decoder steps, Flowtron's frames here (1000 in the timing phase)
+    t2 = random_init_(Tacotron2(Tacotron2Config(max_decoder_steps=400)).to(device), 106,
+                      device).eval()
+    with torch.no_grad():
+        # every FastPitch duration exactly 6 frames, in f32 and in bf16 alike
+        # (a random duration head's bf16 rounding moves some durations by a
+        # frame, and the --amp run is held to the f32 run's lengths)
+        models["fastpitch"].duration_predictor.fc.weight.zero_()
+        fs2.duration_predictor.fc.bias.fill_(float(np.log(7.0)))
+        heads[0].backbone.out.weight.zero_()  # every duration 6 frames
+        heads[0].backbone.out.bias.fill_(6.0)
+        fl.flows[1].gate_layer.bias.fill_(-50.0)  # no row stops: every row the same length
+        t2.cell.gate_layer.bias.fill_(-50.0)
+    models.update(fastspeech2=fs2, talknet=heads, flowtron=fl, tacotron2=t2,
+                  gradtts=random_gradtts(GradTTSConfig(), 6, device, frames_per_token=3.0))
+    encoded = {"fastpitch": encode(v2), "gradtts": gradtts_infer.encode(lines, 149)}
+    for family in ("fastspeech2", "talknet", "flowtron", "tacotron2"):
+        encoded[family] = encode(basic)
+    gen = random_init_(Generator(HiFiGANConfig.v1()).to(device), 1, device).eval()
+    return models, encoded, gen
+
+
+def serve(family, model, gen, encoded, devices, dtype=None):
+    """``family``'s ``synthesize`` over ``devices`` at batch 8 with its
+    draws active (Grad-TTS's stochastic sampler, Flowtron's z at σ 0.8,
+    Tacotron 2's prenet dropout): [(index, mel, audio)] in yield order."""
+    from neuraltexttospeech_torch.cli import (fastpitch_infer, fastspeech2_infer, flowtron_infer,
+                                              gradtts_infer, tacotron2_infer, talknet_infer)
+
+    if family == "fastpitch":
+        it = fastpitch_infer.synthesize(model, gen, encoded, device=devices, batch_size=8,
+                                        max_mel_len=1024, dtype=dtype)
+    elif family == "fastspeech2":
+        it = fastspeech2_infer.synthesize(model, gen, encoded, device=devices, batch_size=8)
+    elif family == "talknet":
+        it = talknet_infer.synthesize(model, gen, encoded, device=devices, batch_size=8)
+    elif family == "gradtts":
+        it = (o[:3] for o in gradtts_infer.synthesize(model, gen, encoded, device=devices,
+                                                      stoc=True, batch_size=8))
+    elif family == "flowtron":
+        it = flowtron_infer.synthesize(model, gen, encoded, device=devices, batch_size=8,
+                                       n_frames=400, sigma=0.8)
+    else:
+        it = tacotron2_infer.synthesize(model, gen, encoded, device=devices, batch_size=8)
+    return list(it)
+
+
+def held_equal(what, one, two, atol, of_size=0.0):
+    """Two serving runs' outputs: the same indices and lengths, mels and audio
+    within ``atol`` (or ``of_size`` times the largest value of the first run,
+    when that is more); returns the largest mel and audio differences."""
+    if [j for j, _, _ in one] != [j for j, _, _ in two]:
+        raise RuntimeError(f"{what}: the utterances came back in another order")
+    e_mel = e_audio = 0.0
+    for (j, mel1, audio1), (_, mel2, audio2) in zip(one, two):
+        if mel1.shape != mel2.shape or audio1.shape != audio2.shape or not mel1.shape[0]:
+            raise RuntimeError(f"{what} utterance {j}: mel {mel1.shape} vs {mel2.shape}, "
+                               f"audio {audio1.shape} vs {audio2.shape}")
+        if not (np.isfinite(mel2).all() and np.isfinite(audio2).all()):
+            raise RuntimeError(f"{what} utterance {j}: non-finite output")
+        e_mel = max(e_mel, float(np.abs(mel1 - mel2).max()))
+        e_audio = max(e_audio, float(np.abs(audio1 - audio2).max()))
+    tol = [max(atol, of_size * max(float(np.abs(o[k]).max()) for o in one)) for k in (1, 2)]
+    if not (e_mel <= tol[0] and e_audio <= tol[1]):
+        raise RuntimeError(f"{what}: mel {e_mel:.3e}, audio {e_audio:.3e} past "
+                           f"{tol[0]:.3e}, {tol[1]:.3e}")
+    return e_mel, e_audio
+
+
+def phase_serving_replicas(torch, device, card):
+    """Serving over several devices (``utils/serving.py``) on the one card.
+
+    (a) The six serving loops (FastPitch, FastSpeech 2, TalkNet 2, Grad-TTS,
+    Flowtron, Tacotron 2, each with HiFi-GAN v1, full width, random weights;
+    Flowtron and Tacotron 2 over 400 frames) on the first 8 ``SENTENCES`` at
+    batch 8, f32 with TF32 off, after a warm run of each: once on
+    ``[cuda:0]`` and once on ``[cuda:0, cuda:0]`` (two replicas, two host
+    threads), the draws active; the two runs hold the same indices and
+    lengths, mels and audio within 1e-4 (cuBLAS and cuDNN may pick other
+    algorithms at 4 rows than at 8; Grad-TTS's within 1e-5 of their size
+    where that is more, as its CPU parity is held). FastPitch → v1 also with ``--amp`` on
+    two replicas, held to the one-replica bf16 run by the bf16 yardstick (the
+    one-replica runs in JAX's place) and differing from the f32 run. Each
+    traced run's wall and the card's busy share are printed; two replicas
+    share one card, so the walls are not a scaling figure. (b) The trace
+    tools: ``tools/torch_trace_capture.py`` for ``hifigan_gan`` (bf16) and
+    ``fastpitch_infer``, 3 steps each, B2 bf16 90 and B1 3 launches a GAN
+    step in the trace (each run in a process of its own, as a user runs it),
+    and ``tools/torch_trace_breakdown.py`` on the written Chrome trace
+    reading the busy time the raw records give within 2 %. (c)
+    ``tools/torch_audio_compare.py`` on a synthetic 10 s wav, B1 on the card
+    within 1e-3 of the float64 oracle."""
+    from neuraltexttospeech_torch.utils.profiling import breakdown
+    from torch.profiler import ProfilerActivity, profile
+    from tools import torch_audio_compare, torch_trace_breakdown
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    models, encoded, gen = serving_models(torch, device)
+    one, two = [device], [device, device]
+
+    def traced(family, devices, dtype=None):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = serve(family, models[family], gen, encoded[family], devices, dtype)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        b = breakdown(prof)
+        return out, wall, b.busy_ms / 1e3 / wall
+
+    results = {}
+    for family in ("fastpitch", "fastspeech2", "talknet", "gradtts", "flowtron", "tacotron2"):
+        for devices in (one, two):  # warm: algorithms at both batches, the threads' handles
+            serve(family, models[family], gen, encoded[family], devices)
+        out1, wall1, share1 = traced(family, one)
+        out2, wall2, share2 = traced(family, two)
+        # Grad-TTS's Euler steps scale the estimator's rounding, which other
+        # conv algorithms at 4 rows than at 8 change: its mel (and the audio
+        # of it) is held at 1e-5 of its size where that is more than 1e-4,
+        # as its CPU parity is (ROADMAP §C)
+        e_mel, e_audio = held_equal(f"{family}: 2 replicas vs 1", out1, out2, 1e-4,
+                                    1e-5 if family == "gradtts" else 0.0)
+        frames = sum(m.shape[0] for _, m, _ in out1)
+        results[family] = out1
+        log(f"serving replicas (a): {family} + v1, 8 sentences at batch 8, f32 (TF32 off), "
+            f"{frames} frames: [cuda:0] vs [cuda:0, cuda:0] same order and lengths, max |diff| "
+            f"mel {e_mel:.2e}, audio {e_audio:.2e}; traced wall 1 replica {wall1 * 1e3:.1f} ms "
+            f"(card busy {share1:.3f}), 2 replicas on one card {wall2 * 1e3:.1f} ms (busy "
+            f"{share2:.3f}); not a scaling figure: both replicas share the one card [{card}]")
+    for devices in (one, two):
+        serve("fastpitch", models["fastpitch"], gen, encoded["fastpitch"], devices,
+              torch.bfloat16)
+    bf16_one, wall1, share1 = traced("fastpitch", one, torch.bfloat16)
+    bf16_two, wall2, share2 = traced("fastpitch", two, torch.bfloat16)
+    if [(j, m.shape) for j, m, _ in bf16_one] != [(j, m.shape) for j, m, _ in bf16_two]:
+        raise RuntimeError("fastpitch --amp: 2 replicas gave other lengths than 1")
+    if [m.shape for _, m, _ in bf16_one] != [m.shape for _, m, _ in results["fastpitch"]]:
+        raise RuntimeError("fastpitch --amp: other lengths than f32")
+    flat = lambda out, k: np.concatenate([o[k].ravel() for o in out])  # noqa: E731
+    errs = [bf16_yardstick(f"fastpitch --amp {what}, 2 replicas vs 1", flat(bf16_two, k),
+                           flat(bf16_one, k), flat(results["fastpitch"], k))
+            for k, what in ((1, "mel"), (2, "audio"))]
+    off_f32 = float(np.abs(flat(bf16_two, 1) - flat(results["fastpitch"], 1)).max())
+    if not off_f32 > 1e-3:
+        raise RuntimeError(f"fastpitch --amp on 2 replicas is {off_f32:.2e} from the f32 run: "
+                           "bf16 did not run in the threads")
+    log(f"serving replicas (a): fastpitch + v1 --amp: 2 replicas vs 1 mel {errs[0][0]:.2e}, "
+        f"audio {errs[1][0]:.2e} (1 replica bf16 vs f32 {errs[0][1]:.2e}, {errs[1][1]:.2e}: "
+        f"within the bf16 yardstick); 2 replicas' bf16 mel vs f32 {off_f32:.2e}; traced wall "
+        f"1 replica {wall1 * 1e3:.1f} ms (busy {share1:.3f}), 2 replicas on one card "
+        f"{wall2 * 1e3:.1f} ms (busy {share2:.3f}) [{card}]")
+    del models, results
+    torch.cuda.empty_cache()
+    t_b = time.perf_counter()
+
+    for case, amp in (("hifigan_gan", True), ("fastpitch_infer", False)):
+        # the tool in a process of its own, as a user runs it: in this
+        # long-lived process the profiler lost the first ~40 device records
+        # of every 3-step GAN trace (2 of its 9 B1 launches), in a fresh one
+        # none
+        out, t0 = WORK / f"trace_{case}", time.perf_counter()
+        run = subprocess.run([sys.executable, str(ROOT / "tools" / "torch_trace_capture.py"),
+                              case, "--steps", "3", "--top", "8", "--out", str(out)]
+                             + (["--amp"] if amp else []),
+                             capture_output=True, text=True, timeout=600)
+        text = "\n".join(line for line in run.stdout.splitlines() if not line.startswith("USDT"))
+        if run.returncode != 0:
+            raise RuntimeError(f"tools/torch_trace_capture.py {case} failed:\n{text[-3000:]}"
+                               f"{run.stderr[-3000:]}")
+        log(f"serving replicas (b): python tools/torch_trace_capture.py {case}"
+            f"{' --amp' if amp else ''} --steps 3 ({time.perf_counter() - t0:.1f} s) "
+            f"[{card}]:\n{text}")
+        raw_busy = float(text.split("card busy ", 1)[1].split(" ms/step", 1)[0])
+        c = torch_trace_breakdown.summarize(str(out), steps=3, top=3)
+        if abs(c.busy_ms / c.steps - raw_busy) > 0.02 * raw_busy:
+            raise RuntimeError(f"{case}: the Chrome trace reads busy {c.busy_ms / c.steps:.3f} "
+                               f"ms a step, the raw records {raw_busy:.3f}")
+        traced = tuple(sum(n for name, (_, n) in c.kernels.items() if key in name) / c.steps
+                       for key in (B2_MAIN_KERNELS[1], "logmel_fft_kernel"))
+        want = (b2_launches_per_step(8192), 3) if case == "hifigan_gan" else (0, 0)
+        if traced != want:
+            raise RuntimeError(f"the traced {case} launched B2 bf16, B1 {traced} a step, not "
+                               f"{want}")
+        log(f"  B2 bf16 {traced[0]:g} and B1 {traced[1]:g} launches a step in the trace; "
+            f"tools/torch_trace_breakdown.py reads busy {c.busy_ms / c.steps:.3f} ms a step, "
+            f"the raw records {raw_busy:.3f}")
+    t_c = time.perf_counter()
+    res = torch_audio_compare.main(["--seed", "0", "--out", str(WORK / "audio_compare")])
+    log(f"serving replicas (c): tools/torch_audio_compare.py, 10 s synthetic wav "
+        f"({res['frames']} frames): plain vs float64 L1 {res['pairs']['plain', 'float64'][0]:.2e} "
+        f"Linf {res['pairs']['plain', 'float64'][1]:.2e}, B1 on the card vs float64 L1 "
+        f"{res['pairs']['B1', 'float64'][0]:.2e} Linf {res['pairs']['B1', 'float64'][1]:.2e} "
+        f"(budget 1e-3) [{card}]")
+    log(f"serving replicas: (a) {t_b - t_phase:.1f} s, (b) {t_c - t_b:.1f} s, (c) "
+        f"{time.perf_counter() - t_c:.1f} s")
+
+
 def main():
     import torch
 
@@ -3511,6 +3726,7 @@ def main():
         phase_tacotron2_timing(torch, device, smi)
         phase_flowtron_timing(torch, device, smi)
         phase_parallel(torch, device, smi)
+        phase_serving_replicas(torch, device, smi)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(json.dumps({"kernels": [b1, b2, b2_bf16, mas]}))

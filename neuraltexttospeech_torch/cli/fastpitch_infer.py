@@ -6,6 +6,11 @@ decoded length up to a 128-frame vocoder bucket, vocodes, and trims every
 utterance to ``dec_lens`` frames and ``dec_lens · hop`` samples. Writes mel
 ``.npy`` files and, with ``--hifigan-checkpoint``, 22 kHz wavs.
 
+With no ``--device`` it serves on every visible card (``CUDA_VISIBLE_DEVICES``
+picks them): each batch is rounded up to a multiple of the card count and
+split over them, one replica of each model a card and one host thread a
+replica, as the JAX CLI shards it (``utils/serving.py``).
+
 Usage:
   python -m neuraltexttospeech_torch.cli.fastpitch_infer --checkpoint CKPT_DIR \
       -i phrases.txt -o out/wavs [--hifigan-checkpoint HG_DIR] [--device cpu]
@@ -19,18 +24,17 @@ from __future__ import annotations
 
 import argparse
 import pathlib
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..data.filelist import save_wav
 from ..models.registry import load_checkpoint, load_frontend_config
-from ..nn.precision import compute_dtype
 from ..text.processing import TextProcessing
-from ..utils.device import resolve_device
-from ..utils.serving import round_up, serving_sharding, text_batches
-from .hifigan_infer import load_generator, vocode
+from ..utils.device import resolve_devices
+from ..utils.serving import Replicas, round_up, serving_sharding, text_batches
+from .hifigan_infer import load_generator, vocode_replicas
 
 VOCODER_BUCKET = 128  # frames
 
@@ -57,42 +61,49 @@ def parse_args(argv=None):
     p.add_argument("--sampling-rate", type=int, default=22050)
     p.add_argument("--hop-length", type=int, default=256)
     p.add_argument("--device", default=None,
-                   help="torch device (default: cuda)")
+                   help="torch device (default: every visible card, each batch split "
+                        "over them; CUDA_VISIBLE_DEVICES picks the cards)")
     return p.parse_args(argv)
 
 
 def synthesize(fastpitch, generator, encoded: Sequence[np.ndarray], *,
-               device: torch.device, batch_size: int = 8, pace: float = 1.0,
-               max_mel_len: int = 2048, hop_length: int = 256,
+               device: Union[torch.device, Sequence[torch.device]], batch_size: int = 8,
+               pace: float = 1.0, max_mel_len: int = 2048, hop_length: int = 256,
                text_bucket: int = 16, frame_bucket: int = VOCODER_BUCKET,
                dtype: Optional[torch.dtype] = None):
     """The serving loop. Yields ``(index, mel [n, n_mel], audio [n·hop] or
     None)`` per utterance, as f32 numpy, in batch order; ``index`` is the
     utterance's position in ``encoded``.
 
+    ``device`` is one device or a list: each batch is split over the list
+    in contiguous rows, one replica of each model a device, one thread a
+    replica (``utils/serving.py``), and the vocoder bucket is taken over the
+    whole batch, so the results equal one device's at the rounded batch.
+
     Text is padded to ``text_bucket`` tokens and the vocoder input to
     ``frame_bucket`` frames. Padding is not neutral: the predictors' second
     conv sees the first one's nonzero outputs at padded positions, so the
     last tokens' durations depend on the bucket, in the JAX CLI as here.
     """
-    put, _, batch_size = serving_sharding(batch_size, device)
-    for idxs, text, lens in text_batches(encoded, batch_size, text_bucket):
-        with torch.inference_mode(), compute_dtype(dtype):
-            mel, dec_lens = fastpitch.infer(put(text), put(lens), pace=pace,
-                                            max_mel_len=max_mel_len)[:2]
-        mel = mel.float()  # the host boundary is f32 whatever the compute type
-        dec_lens = dec_lens.cpu().numpy()
-        audio = None
-        if generator is not None:
-            M = min(round_up(int(dec_lens[:len(idxs)].max()), frame_bucket),
-                    max_mel_len)
-            # a batch whose utterances all got 0 frames has nothing to vocode
-            audio = (vocode(generator, mel[:, :M], dtype).cpu().numpy() if M
-                     else np.zeros((len(text), 0), np.float32))
-        mel = mel.cpu().numpy()
-        for r, j in enumerate(idxs):
-            n = int(dec_lens[r])
-            yield j, mel[r, :n], (None if audio is None else audio[r, :n * hop_length])
+    devices = resolve_devices(device)
+    put, replicate, batch_size = serving_sharding(batch_size, devices)
+    models = replicate(fastpitch)
+    generators = None if generator is None else replicate(generator)
+
+    def infer(i, text, lens):
+        mel, dec_lens = models[i].infer(text, lens, pace=pace, max_mel_len=max_mel_len)[:2]
+        # the host boundary is f32 whatever the compute type
+        return mel.float(), dec_lens.cpu().numpy()
+
+    with Replicas(devices) as replicas:
+        for idxs, text, lens in text_batches(encoded, batch_size, text_bucket):
+            mels, dec_lens = zip(*replicas.map(infer, put(text), put(lens), dtype=dtype))
+            dec_lens = np.concatenate(dec_lens)
+            M = min(round_up(int(dec_lens[:len(idxs)].max()), frame_bucket), max_mel_len)
+            mel, audio = vocode_replicas(replicas, generators, mels, M, dtype)
+            for r, j in enumerate(idxs):
+                n = int(dec_lens[r])
+                yield j, mel[r, :n], (None if audio is None else audio[r, :n * hop_length])
 
 
 def text_processing(checkpoint, symbol_set: Optional[str] = None,
@@ -109,13 +120,13 @@ def text_processing(checkpoint, symbol_set: Optional[str] = None,
 
 def main(argv=None):
     args = parse_args(argv)
-    device = resolve_device(args.device)
-    model, _ = load_checkpoint(args.checkpoint, "FastPitch", device)
+    devices = resolve_devices(args.device)
+    model, _ = load_checkpoint(args.checkpoint, "FastPitch", devices[0])
     tp = text_processing(args.checkpoint, args.symbol_set, args.text_cleaners,
                          args.p_arpabet)
     generator = None
     if args.hifigan_checkpoint:
-        generator, _ = load_generator(args.hifigan_checkpoint, device)
+        generator, _ = load_generator(args.hifigan_checkpoint, devices[0])
 
     out_dir = pathlib.Path(args.output)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -123,7 +134,7 @@ def main(argv=None):
              .splitlines() if l.strip()]
     encoded = [np.asarray(tp.encode_text(l), np.int32) for l in lines]
     for j, mel, audio in synthesize(
-            model, generator, encoded, device=device, batch_size=args.batch_size,
+            model, generator, encoded, device=devices, batch_size=args.batch_size,
             pace=args.pace, max_mel_len=args.max_mel_len,
             hop_length=args.hop_length,
             dtype=torch.bfloat16 if args.amp else None):

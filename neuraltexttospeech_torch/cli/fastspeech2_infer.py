@@ -12,6 +12,11 @@ the batch's longest ``dec_lens`` rounded up to a 128-frame bucket (at most
 ``dec_lens · hop`` samples. Writes ``utt_XXXX_mel.npy`` and, with a
 vocoder, ``utt_XXXX.wav``.
 
+With no ``--device`` it serves on every visible card (``CUDA_VISIBLE_DEVICES``
+picks them): each batch is rounded up to a multiple of the card count and
+split over them, one replica of each model a card and one host thread a
+replica, as the JAX CLI shards it (``utils/serving.py``).
+
 Usage:
   python -m neuraltexttospeech_torch.cli.fastspeech2_infer --checkpoint CKPT_DIR \\
       -i phrases.txt -o out/mels [--hifigan-checkpoint HG_DIR] [--device cpu]
@@ -21,18 +26,17 @@ from __future__ import annotations
 
 import argparse
 import pathlib
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..data.filelist import save_wav
 from ..models.registry import load_checkpoint, load_frontend_config
-from ..nn.precision import compute_dtype
 from ..text.processing import TextProcessing
-from ..utils.device import resolve_device
-from ..utils.serving import round_up, serving_sharding, text_batches
-from .hifigan_infer import load_generator, vocode
+from ..utils.device import resolve_devices
+from ..utils.serving import Replicas, round_up, serving_sharding, text_batches
+from .hifigan_infer import load_generator, vocode_replicas
 
 VOCODER_BUCKET = 128  # frames
 
@@ -54,45 +58,53 @@ def parse_args(argv=None):
                    help="utterances per device batch; inputs are length-sorted and padded "
                         "to 16-token text buckets")
     p.add_argument("--sampling-rate", type=int, default=22050)
-    p.add_argument("--device", default=None, help="torch device (default: cuda)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: every visible card, each batch split "
+                        "over them; CUDA_VISIBLE_DEVICES picks the cards)")
     return p.parse_args(argv)
 
 
-def synthesize(model, generator, encoded: Sequence[np.ndarray], *, device: torch.device,
-               max_mel_len: int = 1024, p_control: float = 1.0, e_control: float = 1.0,
-               d_control: float = 1.0, batch_size: int = 8,
-               dtype: Optional[torch.dtype] = None):
+def synthesize(model, generator, encoded: Sequence[np.ndarray], *,
+               device: Union[torch.device, Sequence[torch.device]], max_mel_len: int = 1024,
+               p_control: float = 1.0, e_control: float = 1.0, d_control: float = 1.0,
+               batch_size: int = 8, dtype: Optional[torch.dtype] = None):
     """The serving loop. Yields ``(index, mel [n, n_mel], audio [n·hop] or
-    None)`` per utterance, as f32 numpy, in batch order."""
-    put, _, batch_size = serving_sharding(batch_size, device)
-    for idxs, text, lens in text_batches(encoded, batch_size):
-        with torch.inference_mode(), compute_dtype(dtype):
-            out = model(put(text), put(lens), mel_max_len=max_mel_len, p_control=p_control,
+    None)`` per utterance, as f32 numpy, in batch order. ``device`` is one
+    device or a list, each batch split over it (``utils/serving.py``)."""
+    devices = resolve_devices(device)
+    put, replicate, batch_size = serving_sharding(batch_size, devices)
+    models = replicate(model)
+    generators = None if generator is None else replicate(generator)
+    hop = 0 if generator is None else generator.config.hop_size
+
+    def infer(i, text, lens):
+        out = models[i](text, lens, mel_max_len=max_mel_len, p_control=p_control,
                         e_control=e_control, d_control=d_control)
-        mel = (out.mel_postnet if out.mel_postnet is not None else out.mel_out).float()
-        dec_lens = out.dec_lens.cpu().numpy()  # the fetch waits for the batch
-        audio, hop = None, 0
-        if generator is not None:
-            hop = generator.config.hop_size
+        mel = out.mel_postnet if out.mel_postnet is not None else out.mel_out
+        return mel.float(), out.dec_lens.cpu().numpy()  # the fetch waits for the batch
+
+    with Replicas(devices) as replicas:
+        for idxs, text, lens in text_batches(encoded, batch_size):
+            mels, dec_lens = zip(*replicas.map(infer, put(text), put(lens), dtype=dtype))
+            dec_lens = np.concatenate(dec_lens)
             M = min(round_up(int(dec_lens[:len(idxs)].max()), VOCODER_BUCKET), max_mel_len)
-            audio = vocode(generator, mel[:, :M], dtype).cpu().numpy()
-        mel = mel.cpu().numpy()
-        for r, j in enumerate(idxs):
-            n = int(dec_lens[r])
-            yield j, mel[r, :n], (None if audio is None else audio[r, :n * hop])
+            mel, audio = vocode_replicas(replicas, generators, mels, M, dtype)
+            for r, j in enumerate(idxs):
+                n = int(dec_lens[r])
+                yield j, mel[r, :n], (None if audio is None else audio[r, :n * hop])
 
 
 def main(argv=None):
     args = parse_args(argv)
-    device = resolve_device(args.device)
-    model, _ = load_checkpoint(args.checkpoint, "FastSpeech2", device)
+    devices = resolve_devices(args.device)
+    model, _ = load_checkpoint(args.checkpoint, "FastSpeech2", devices[0])
     fe = load_frontend_config(args.checkpoint, default={}) or {}
     tp = TextProcessing(fe.get("symbol_set", "english_basic"),
                         fe.get("text_cleaners", ["english_cleaners"]),
                         p_arpabet=fe.get("p_arpabet", 1.0))
     vocoder = None
     if args.hifigan_checkpoint:
-        vocoder, _ = load_generator(args.hifigan_checkpoint, device)
+        vocoder, _ = load_generator(args.hifigan_checkpoint, devices[0])
 
     out_dir = pathlib.Path(args.output)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -100,7 +112,7 @@ def main(argv=None):
              .splitlines() if l.strip()]
     encoded = [np.asarray(tp.encode_text(l), np.int32) for l in lines]
     for j, mel, audio in synthesize(
-            model, vocoder, encoded, device=device, max_mel_len=args.max_mel_len,
+            model, vocoder, encoded, device=devices, max_mel_len=args.max_mel_len,
             p_control=args.pitch_control, e_control=args.energy_control,
             d_control=args.duration_control, batch_size=args.batch_size,
             dtype=torch.bfloat16 if args.amp else None):

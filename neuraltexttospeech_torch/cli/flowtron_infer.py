@@ -18,6 +18,11 @@ to ``n · hop`` samples. ``--amp`` computes the model and the vocoder in bf16
 or its run dir or ``checkpoints`` dir (the newest step); its
 ``model_config.json`` gives the config, else ``FlowtronConfig()``.
 
+With no ``--device`` it serves on every visible card (``CUDA_VISIBLE_DEVICES``
+picks them): each batch is rounded up to a multiple of the card count and
+split over them, one replica of each model a card and one host thread a
+replica, as the JAX CLI shards it (``utils/serving.py``).
+
 Usage:
   python -m neuraltexttospeech_torch.cli.flowtron_infer --checkpoint out/flowtron \\
       -i phrases.txt -o out/mels --sigma 0.8 --n-frames 400 [--device cpu]
@@ -28,7 +33,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import pathlib
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -38,10 +43,10 @@ from ..models.flowtron import Flowtron, FlowtronConfig
 from ..models.registry import WEIGHTS_FILE, find_model_config, load_checkpoint, load_model_config
 from ..text.processing import TextProcessing
 from ..train.checkpoint import checkpoint_dir
-from ..utils.device import resolve_device
+from ..utils.device import resolve_devices
 from ..utils.generators import seeded_generator
-from ..utils.serving import round_up, serving_sharding, text_batches
-from .hifigan_infer import load_generator, vocode
+from ..utils.serving import Replicas, round_up, serving_sharding, text_batches
+from .hifigan_infer import load_generator, vocode_replicas
 
 VOCODER_BUCKET = 128  # frames
 
@@ -64,7 +69,9 @@ def parse_args(argv=None):
     p.add_argument("--gate-threshold", type=float, default=0.5)
     p.add_argument("--sampling-rate", type=int, default=22050)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", default=None, help="torch device (default: cuda)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: every visible card, each batch split "
+                        "over them; CUDA_VISIBLE_DEVICES picks the cards)")
     return p.parse_args(argv)
 
 
@@ -90,52 +97,62 @@ def trim_lengths(gate_prob: np.ndarray, threshold: float = 0.5) -> np.ndarray:
     return np.where(ok, stop, gate_prob.shape[1])
 
 
-def synthesize(model, generator, encoded: Sequence[np.ndarray], *, device: torch.device,
-               batch_size: int = 8, n_frames: int = 400, sigma: float = 0.8,
-               speaker: int = 0, seed: int = 0, gate_threshold: float = 0.5,
-               dtype: Optional[torch.dtype] = None,
+def synthesize(model, generator, encoded: Sequence[np.ndarray], *,
+               device: Union[torch.device, Sequence[torch.device]], batch_size: int = 8,
+               n_frames: int = 400, sigma: float = 0.8, speaker: int = 0, seed: int = 0,
+               gate_threshold: float = 0.5, dtype: Optional[torch.dtype] = None,
                noise: Optional[Callable[[int, tuple], torch.Tensor]] = None):
     """The serving loop. Yields ``(index, mel [n, n_mel], audio [n·hop] or
     None)`` per utterance, as f32 numpy, in batch order. ``noise(b, shape)``
     gives batch b's unit-variance draws (default: ``randn`` from a generator
-    seeded ``(seed, b)``); ``dtype`` is the vocoder's compute dtype."""
-    put, _, batch_size = serving_sharding(batch_size, device)
+    seeded ``(seed, b)``); ``dtype`` is the vocoder's compute dtype.
+
+    ``device`` is one device or a list, each batch split over it
+    (``utils/serving.py``); ``z`` is drawn once for the whole batch on the
+    first device and split like the text, so the draws are one device's."""
+    devices = resolve_devices(device)
+    put, replicate, batch_size = serving_sharding(batch_size, devices)
+    models = replicate(model)
+    generators = None if generator is None else replicate(generator)
+    hop = 0 if generator is None else generator.config.hop_size
     n_mel = model.config.n_mel_channels
-    for b, (idxs, text, lens) in enumerate(text_batches(encoded, batch_size)):
-        shape = (text.shape[0], n_frames, n_mel)
-        z = (noise(b, shape).to(device) if noise is not None else
-             torch.randn(shape, generator=seeded_generator(device, seed, b), device=device))
-        with torch.inference_mode():
-            mel, gate, _ = model.infer(z * sigma, put(np.full(shape[0], speaker, np.int32)),
-                                       put(text), put(lens))
-        mel = mel.float()
-        n_all = trim_lengths(torch.sigmoid(gate.float()).cpu().numpy(), gate_threshold)
-        audio, hop = None, 0
-        if generator is not None:
-            hop = generator.config.hop_size
+
+    def infer(i, z, speakers, text, lens):
+        mel, gate, _ = models[i].infer(z * sigma, speakers, text, lens)
+        return mel.float(), trim_lengths(torch.sigmoid(gate.float()).cpu().numpy(),
+                                         gate_threshold)
+
+    with Replicas(devices) as replicas:
+        for b, (idxs, text, lens) in enumerate(text_batches(encoded, batch_size)):
+            shape = (text.shape[0], n_frames, n_mel)
+            z = (noise(b, shape).to(devices[0]) if noise is not None else
+                 torch.randn(shape, generator=seeded_generator(devices[0], seed, b),
+                             device=devices[0]))
+            mels, n_all = zip(*replicas.map(
+                infer, put(z), put(np.full(shape[0], speaker, np.int32)), put(text), put(lens)))
+            n_all = np.concatenate(n_all)
             M = min(round_up(int(n_all[:len(idxs)].max()), VOCODER_BUCKET), n_frames)
-            audio = vocode(generator, mel[:, :M], dtype).cpu().numpy()
-        mel = mel.cpu().numpy()
-        for r, j in enumerate(idxs):
-            n = int(n_all[r])
-            yield j, mel[r, :n], (None if audio is None else audio[r, :n * hop])
+            mel, audio = vocode_replicas(replicas, generators, mels, M, dtype)
+            for r, j in enumerate(idxs):
+                n = int(n_all[r])
+                yield j, mel[r, :n], (None if audio is None else audio[r, :n * hop])
 
 
 def main(argv=None):
     args = parse_args(argv)
-    device = resolve_device(args.device)
-    model = load_flowtron(args.checkpoint, device, args.amp)
+    devices = resolve_devices(args.device)
+    model = load_flowtron(args.checkpoint, devices[0], args.amp)
     tp = TextProcessing("english_basic", ["english_cleaners"], p_arpabet=0.0)
     vocoder = None
     if args.hifigan_checkpoint:
-        vocoder, _ = load_generator(args.hifigan_checkpoint, device)
+        vocoder, _ = load_generator(args.hifigan_checkpoint, devices[0])
 
     out_dir = pathlib.Path(args.output)
     out_dir.mkdir(parents=True, exist_ok=True)
     lines = [l.strip() for l in pathlib.Path(args.input).read_text(encoding="utf-8")
              .splitlines() if l.strip()]
     encoded = [np.asarray(tp.encode_text(l), np.int32) for l in lines]
-    for j, mel, audio in synthesize(model, vocoder, encoded, device=device,
+    for j, mel, audio in synthesize(model, vocoder, encoded, device=devices,
                                     batch_size=args.batch_size, n_frames=args.n_frames,
                                     sigma=args.sigma, speaker=args.speaker, seed=args.seed,
                                     gate_threshold=args.gate_threshold,

@@ -14,6 +14,11 @@ Batch ``b``'s randomness (the terminal noise, and with ``--stoc`` the
 per-step noise) comes from a generator seeded with ``b``, as the JAX CLI
 keys batch ``b`` with ``PRNGKey(b)``; the two draw other noise.
 
+With no ``--device`` it serves on every visible card (``CUDA_VISIBLE_DEVICES``
+picks them): each batch is rounded up to a multiple of the card count and
+split over them, one replica of each model a card and one host thread a
+replica, as the JAX CLI shards it (``utils/serving.py``).
+
 Usage:
   python -m neuraltexttospeech_torch.cli.gradtts_infer --checkpoint CKPT_DIR \\
       -i phrases.txt -o out/mels [--hifigan-checkpoint HG_DIR] [--device cpu]
@@ -24,7 +29,7 @@ from __future__ import annotations
 import argparse
 import pathlib
 import time
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -32,11 +37,10 @@ import torch
 from ..data.filelist import save_wav
 from ..models.gradtts import fix_len_compatibility
 from ..models.registry import load_checkpoint
-from ..nn.precision import compute_dtype
 from ..text.processing import TextProcessing, intersperse
-from ..utils.device import resolve_device
-from ..utils.serving import round_up, serving_sharding, text_batches
-from .hifigan_infer import load_generator, vocode
+from ..utils.device import resolve_devices
+from ..utils.serving import Replicas, round_up, serving_sharding, text_batches
+from .hifigan_infer import load_generator, vocode_replicas
 
 VOCODER_BUCKET = 128  # frames
 
@@ -60,7 +64,9 @@ def parse_args(argv=None):
     p.add_argument("--max-mel-len", type=int, default=1000)
     p.add_argument("--sampling-rate", type=int, default=22050)
     p.add_argument("--hop-length", type=int, default=256)
-    p.add_argument("--device", default=None, help="torch device (default: cuda)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: every visible card, each batch split "
+                        "over them; CUDA_VISIBLE_DEVICES picks the cards)")
     return p.parse_args(argv)
 
 
@@ -70,50 +76,62 @@ def encode(lines: Sequence[str], n_symbols: int):
     return [np.asarray(intersperse(tp.encode_text(l), n_symbols - 1), np.int32) for l in lines]
 
 
-def synthesize(model, generator, encoded: Sequence[np.ndarray], *, device: torch.device,
-               n_timesteps: int = 10, temperature: float = 1.5, stoc: bool = False,
-               length_scale: float = 1.0, batch_size: int = 8, max_mel_len: int = 1000,
-               hop_length: int = 256, sampling_rate: int = 22050,
-               frame_bucket: int = VOCODER_BUCKET, dtype: Optional[torch.dtype] = None):
+def synthesize(model, generator, encoded: Sequence[np.ndarray], *,
+               device: Union[torch.device, Sequence[torch.device]], n_timesteps: int = 10,
+               temperature: float = 1.5, stoc: bool = False, length_scale: float = 1.0,
+               batch_size: int = 8, max_mel_len: int = 1000, hop_length: int = 256,
+               sampling_rate: int = 22050, frame_bucket: int = VOCODER_BUCKET,
+               dtype: Optional[torch.dtype] = None):
     """The serving loop. Yields ``(index, mel [n, n_feats], audio [n·hop] or
-    None, batch RTF)`` per utterance, as f32 numpy, in batch order."""
-    put, _, batch_size = serving_sharding(batch_size, device)
+    None, batch RTF)`` per utterance, as f32 numpy, in batch order.
+
+    ``device`` is one device or a list, each batch split over it
+    (``utils/serving.py``). Every replica draws from its own generator seeded
+    ``b`` on the first device, at the whole batch's shape, and keeps its rows
+    (``parallel/mesh.py::global_draw``): the draws are one device's."""
+    devices = resolve_devices(device)
+    put, replicate, batch_size = serving_sharding(batch_size, devices)
+    models = replicate(model)
+    generators = None if generator is None else replicate(generator)
     max_len = fix_len_compatibility(max_mel_len)
-    for b, (idxs, text, lens) in enumerate(text_batches(encoded, batch_size)):
-        t0 = time.perf_counter()
-        gen = torch.Generator(device=device).manual_seed(b)
-        with torch.inference_mode(), compute_dtype(dtype):
-            _, dec, _, ylen = model(put(text), put(lens), n_timesteps, temperature=temperature,
-                                    stoc=stoc, length_scale=length_scale,
-                                    max_mel_len=max_len, generator=gen)
-        dec = dec.float()  # the host boundary is f32 whatever the compute type
-        ylen = ylen.cpu().numpy()  # the fetch waits for the batch
-        frames = int(ylen[:len(idxs)].sum())
-        rtf = (time.perf_counter() - t0) * sampling_rate / max(frames * hop_length, 1)
-        audio = None
-        if generator is not None:
+    with Replicas(devices) as replicas:
+        for b, (idxs, text, lens) in enumerate(text_batches(encoded, batch_size)):
+            t0 = time.perf_counter()
+
+            def infer(i, text, lens):
+                gen = torch.Generator(device=devices[0]).manual_seed(b)
+                _, dec, _, ylen = models[i](text, lens, n_timesteps, temperature=temperature,
+                                            stoc=stoc, length_scale=length_scale,
+                                            max_mel_len=max_len, generator=gen)
+                # the host boundary is f32 whatever the compute type; the fetch waits
+                return dec.float(), ylen.cpu().numpy()
+
+            decs, ylen = zip(*replicas.map(infer, put(text), put(lens), dtype=dtype))
+            ylen = np.concatenate(ylen)
+            frames = int(ylen[:len(idxs)].sum())
+            rtf = (time.perf_counter() - t0) * sampling_rate / max(frames * hop_length, 1)
             M = min(round_up(int(ylen[:len(idxs)].max()), frame_bucket), max_len)
-            audio = vocode(generator, dec[:, :M], dtype).cpu().numpy()
-        dec = dec.cpu().numpy()
-        for r, j in enumerate(idxs):
-            n = int(ylen[r])
-            yield j, dec[r, :n], (None if audio is None else audio[r, :n * hop_length]), rtf
+            dec, audio = vocode_replicas(replicas, generators, decs, M, dtype)
+            for r, j in enumerate(idxs):
+                n = int(ylen[r])
+                yield (j, dec[r, :n], None if audio is None else audio[r, :n * hop_length],
+                       rtf)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    device = resolve_device(args.device)
-    model, config = load_checkpoint(args.checkpoint, "GradTTS", device)
+    devices = resolve_devices(args.device)
+    model, config = load_checkpoint(args.checkpoint, "GradTTS", devices[0])
     vocoder = None
     if args.hifigan_checkpoint:
-        vocoder, _ = load_generator(args.hifigan_checkpoint, device)
+        vocoder, _ = load_generator(args.hifigan_checkpoint, devices[0])
 
     out_dir = pathlib.Path(args.output)
     out_dir.mkdir(parents=True, exist_ok=True)
     lines = [l.strip() for l in pathlib.Path(args.input).read_text(encoding="utf-8")
              .splitlines() if l.strip()]
     for j, mel, audio, rtf in synthesize(
-            model, vocoder, encode(lines, config.n_symbols), device=device,
+            model, vocoder, encode(lines, config.n_symbols), device=devices,
             n_timesteps=args.timesteps, temperature=args.temperature, stoc=args.stoc,
             length_scale=args.length_scale, batch_size=args.batch_size,
             max_mel_len=args.max_mel_len, hop_length=args.hop_length,

@@ -92,6 +92,26 @@ def vocode(generator, mel: torch.Tensor, dtype: Optional[torch.dtype] = None) ->
         return generator(mel)[..., 0].float()
 
 
+def vocode_replicas(replicas, generators, mels, frames: int,
+                    dtype: Optional[torch.dtype] = None):
+    """The serving CLIs' last stage over ``utils/serving.py::Replicas``: each
+    replica's mels ``[b, T, num_mels]`` to host f32 numpy and, with
+    ``generators`` (one a replica), vocoded at their first ``frames`` frames,
+    the vocoder bucket the caller took over the whole batch. Returns the
+    batch's ``(mel [B, T, num_mels], audio [B, frames·hop] or None)``, rows in
+    replica order."""
+    def run(i, mel):
+        audio = None
+        if generators is not None:
+            # a batch whose utterances all got 0 frames has nothing to vocode
+            audio = (vocode(generators[i], mel[:, :frames], dtype).cpu().numpy() if frames
+                     else np.zeros((len(mel), 0), np.float32))
+        return mel.cpu().numpy(), audio
+
+    mel, audio = zip(*replicas.map(run, mels))
+    return np.concatenate(mel), None if generators is None else np.concatenate(audio)
+
+
 def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)

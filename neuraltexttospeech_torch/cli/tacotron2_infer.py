@@ -16,6 +16,11 @@ and, with a vocoder, ``utt_XXXX.wav``.
 ``--checkpoint`` is a ``tacotron2_train`` checkpoint dir (with ``model.pt``),
 or its run dir or ``checkpoints`` dir (the newest step).
 
+With no ``--device`` it serves on every visible card (``CUDA_VISIBLE_DEVICES``
+picks them): each batch is rounded up to a multiple of the card count and
+split over them, one replica of each model a card and one host thread a
+replica, as the JAX CLI shards it (``utils/serving.py``).
+
 Usage:
   python -m neuraltexttospeech_torch.cli.tacotron2_infer --checkpoint out/tacotron2 \\
       -i phrases.txt -o out/mels [--hifigan-checkpoint HG_DIR] [--device cpu]
@@ -26,7 +31,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import pathlib
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -35,9 +40,9 @@ from ..data.filelist import save_wav
 from ..models.registry import load_checkpoint, load_model_config
 from ..text.processing import TextProcessing
 from ..train.checkpoint import checkpoint_dir
-from ..utils.device import resolve_device
-from ..utils.serving import round_up, serving_sharding, text_batches
-from .hifigan_infer import load_generator, vocode
+from ..utils.device import resolve_devices
+from ..utils.serving import Replicas, round_up, serving_sharding, text_batches
+from .hifigan_infer import load_generator, vocode_replicas
 
 VOCODER_BUCKET = 128  # frames
 PRENET_SEED = 7
@@ -59,7 +64,9 @@ def parse_args(argv=None):
     p.add_argument("--max-decoder-steps", type=int, default=1000)
     p.add_argument("--text-cleaners", nargs="*", default=["english_cleaners"])
     p.add_argument("--sampling-rate", type=int, default=22050)
-    p.add_argument("--device", default=None, help="torch device (default: cuda)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: every visible card, each batch split "
+                        "over them; CUDA_VISIBLE_DEVICES picks the cards)")
     return p.parse_args(argv)
 
 
@@ -74,46 +81,58 @@ def load_tacotron2(path, device: torch.device, max_decoder_steps: int = 1000,
     return load_checkpoint(ckpt, "Tacotron2", device, config=config)[0]
 
 
-def synthesize(model, generator, encoded: Sequence[np.ndarray], *, device: torch.device,
-               batch_size: int = 8, dtype: Optional[torch.dtype] = None):
+def synthesize(model, generator, encoded: Sequence[np.ndarray], *,
+               device: Union[torch.device, Sequence[torch.device]], batch_size: int = 8,
+               dtype: Optional[torch.dtype] = None):
     """The serving loop. Yields ``(index, mel [n, n_mel], audio [n·hop] or
     None)`` per utterance, as f32 numpy, in batch order; ``dtype`` is the
-    vocoder's compute dtype."""
-    put, _, batch_size = serving_sharding(batch_size, device)
-    for idxs, text, lens in text_batches(encoded, batch_size):
-        gen = torch.Generator(device=device)
+    vocoder's compute dtype.
+
+    ``device`` is one device or a list, each batch split over it
+    (``utils/serving.py``). Every replica's prenet draws from its own
+    generator seeded ``PRENET_SEED`` on the first device, at the whole batch's
+    shape, and keeps its rows (``parallel/mesh.py::global_draw``); each runs
+    all the decoder steps (the scan form), so the results are one device's."""
+    devices = resolve_devices(device)
+    put, replicate, batch_size = serving_sharding(batch_size, devices)
+    models = replicate(model)
+    generators = None if generator is None else replicate(generator)
+    hop = 0 if generator is None else generator.config.hop_size
+
+    def infer(i, text, lens):
+        gen = torch.Generator(device=devices[0])
         gen.manual_seed(PRENET_SEED)
-        with torch.inference_mode():
-            out = model.infer(put(text), put(lens), generator=gen)
-        mel = out.mel_out_postnet.float()
-        n_all = out.mel_lengths.cpu().numpy()  # the fetch waits for the batch
-        audio, hop = None, 0
-        if generator is not None:
-            hop = generator.config.hop_size
+        out = models[i].infer(text, lens, generator=gen)
+        # the fetch waits for the batch
+        return out.mel_out_postnet.float(), out.mel_lengths.cpu().numpy()
+
+    with Replicas(devices) as replicas:
+        for idxs, text, lens in text_batches(encoded, batch_size):
+            mels, n_all = zip(*replicas.map(infer, put(text), put(lens)))
+            n_all = np.concatenate(n_all)
             M = min(round_up(max(int(n_all[:len(idxs)].max()), 1), VOCODER_BUCKET),
-                    mel.shape[1])
-            audio = vocode(generator, mel[:, :M], dtype).cpu().numpy()
-        mel = mel.cpu().numpy()
-        for r, j in enumerate(idxs):
-            n = int(n_all[r])
-            yield j, mel[r, :n], (None if audio is None else audio[r, :n * hop])
+                    mels[0].shape[1])
+            mel, audio = vocode_replicas(replicas, generators, mels, M, dtype)
+            for r, j in enumerate(idxs):
+                n = int(n_all[r])
+                yield j, mel[r, :n], (None if audio is None else audio[r, :n * hop])
 
 
 def main(argv=None):
     args = parse_args(argv)
-    device = resolve_device(args.device)
-    model = load_tacotron2(args.checkpoint, device, args.max_decoder_steps, args.amp)
+    devices = resolve_devices(args.device)
+    model = load_tacotron2(args.checkpoint, devices[0], args.max_decoder_steps, args.amp)
     tp = TextProcessing("english_basic", args.text_cleaners, p_arpabet=0.0)
     vocoder = None
     if args.hifigan_checkpoint:
-        vocoder, _ = load_generator(args.hifigan_checkpoint, device)
+        vocoder, _ = load_generator(args.hifigan_checkpoint, devices[0])
 
     out_dir = pathlib.Path(args.output)
     out_dir.mkdir(parents=True, exist_ok=True)
     lines = [l.strip() for l in pathlib.Path(args.input).read_text(encoding="utf-8")
              .splitlines() if l.strip()]
     encoded = [np.asarray(tp.encode_text(l), np.int32) for l in lines]
-    for j, mel, audio in synthesize(model, vocoder, encoded, device=device,
+    for j, mel, audio in synthesize(model, vocoder, encoded, device=devices,
                                     batch_size=args.batch_size,
                                     dtype=torch.bfloat16 if args.amp else None):
         np.save(out_dir / f"utt_{j:04d}_mel.npy", mel)

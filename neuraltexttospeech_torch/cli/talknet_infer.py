@@ -18,6 +18,11 @@ the vocoder in bf16. Writes ``utt_XXXX_mel.npy`` and, with a vocoder,
 A checkpoint argument is a checkpoint dir of ``talknet_train`` (with
 ``model.pt``), or its run dir or ``checkpoints`` dir (the newest step).
 
+With no ``--device`` it serves on every visible card (``CUDA_VISIBLE_DEVICES``
+picks them): each batch is rounded up to a multiple of the card count and
+split over them, one replica of each model a card and one host thread a
+replica, as the JAX CLI shards it (``utils/serving.py``).
+
 Usage:
   python -m neuraltexttospeech_torch.cli.talknet_infer --duration-checkpoint out/tn-dur \\
       --pitch-checkpoint out/tn-pitch --spectrogram-checkpoint out/tn-spec \\
@@ -29,7 +34,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import pathlib
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -39,10 +44,10 @@ from ..models.registry import load_checkpoint, load_frontend_config, load_model_
 from ..models.talknet import GraphemeDuration, PitchPredictor, SpectrogramModel
 from ..text.processing import TextProcessing
 from ..train.checkpoint import checkpoint_dir
-from ..utils.device import resolve_device
+from ..utils.device import resolve_devices
 from ..utils.masking import mask_from_lens
-from ..utils.serving import round_up, serving_sharding, text_batches
-from .hifigan_infer import load_generator, vocode
+from ..utils.serving import Replicas, round_up, serving_sharding, text_batches
+from .hifigan_infer import load_generator, vocode_replicas
 
 VOCODER_BUCKET = 128  # frames
 
@@ -65,7 +70,9 @@ def parse_args(argv=None):
                    help="bf16 compute for the heads' embeddings and pitch conv and the "
                         "vocoder (weights stay f32)")
     p.add_argument("--sampling-rate", type=int, default=22050)
-    p.add_argument("--device", default=None, help="torch device (default: cuda)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: every visible card, each batch split "
+                        "over them; CUDA_VISIBLE_DEVICES picks the cards)")
     return p.parse_args(argv)
 
 
@@ -98,46 +105,53 @@ def synth(heads, text: torch.Tensor, text_lens: torch.Tensor, max_mel_len: int):
     return mel, n, durs
 
 
-def synthesize(heads, generator, encoded: Sequence[np.ndarray], *, device: torch.device,
-               max_mel_len: int = 1024, batch_size: int = 8,
-               dtype: Optional[torch.dtype] = None):
+def synthesize(heads, generator, encoded: Sequence[np.ndarray], *,
+               device: Union[torch.device, Sequence[torch.device]], max_mel_len: int = 1024,
+               batch_size: int = 8, dtype: Optional[torch.dtype] = None):
     """The serving loop. Yields ``(index, mel [n, n_mel], audio [n·hop] or
     None)`` per utterance, as f32 numpy, in batch order; ``dtype`` is the
-    vocoder's compute dtype."""
-    put, _, batch_size = serving_sharding(batch_size, device)
-    for idxs, text, lens in text_batches(encoded, batch_size):
-        mel, n_all, _ = synth(heads, put(text), put(lens), max_mel_len)
-        n_all = n_all.cpu().numpy()  # the fetch waits for the batch
-        audio, hop = None, 0
-        if generator is not None:
-            hop = generator.config.hop_size
+    vocoder's compute dtype. ``device`` is one device or a list, each batch
+    split over it (``utils/serving.py``)."""
+    devices = resolve_devices(device)
+    put, replicate, batch_size = serving_sharding(batch_size, devices)
+    replica_heads = replicate(tuple(heads))
+    generators = None if generator is None else replicate(generator)
+    hop = 0 if generator is None else generator.config.hop_size
+
+    def infer(i, text, lens):
+        mel, n, _ = synth(replica_heads[i], text, lens, max_mel_len)
+        return mel, n.cpu().numpy()  # the fetch waits for the batch
+
+    with Replicas(devices) as replicas:
+        for idxs, text, lens in text_batches(encoded, batch_size):
+            mels, n_all = zip(*replicas.map(infer, put(text), put(lens)))
+            n_all = np.concatenate(n_all)
             M = min(round_up(max(int(n_all[:len(idxs)].max()), 1), VOCODER_BUCKET), max_mel_len)
-            audio = vocode(generator, mel[:, :M], dtype).cpu().numpy()
-        mel = mel.cpu().numpy()
-        for r, j in enumerate(idxs):
-            n = int(n_all[r])
-            yield j, mel[r, :n], (None if audio is None else audio[r, :n * hop])
+            mel, audio = vocode_replicas(replicas, generators, mels, M, dtype)
+            for r, j in enumerate(idxs):
+                n = int(n_all[r])
+                yield j, mel[r, :n], (None if audio is None else audio[r, :n * hop])
 
 
 def main(argv=None):
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    devices = resolve_devices(args.device)
     heads = load_heads(args.duration_checkpoint, args.pitch_checkpoint,
-                       args.spectrogram_checkpoint, device, args.amp)
+                       args.spectrogram_checkpoint, devices[0], args.amp)
     fe = load_frontend_config(checkpoint_dir(args.duration_checkpoint), default={}) or {}
     tp = TextProcessing(fe.get("symbol_set", "english_basic"),
                         fe.get("text_cleaners", ["english_cleaners"]),
                         p_arpabet=fe.get("p_arpabet", 1.0))
     vocoder = None
     if args.hifigan_checkpoint:
-        vocoder, _ = load_generator(args.hifigan_checkpoint, device)
+        vocoder, _ = load_generator(args.hifigan_checkpoint, devices[0])
 
     out_dir = pathlib.Path(args.output)
     out_dir.mkdir(parents=True, exist_ok=True)
     lines = [l.strip() for l in pathlib.Path(args.input).read_text(encoding="utf-8")
              .splitlines() if l.strip()]
     encoded = [np.asarray(tp.encode_text(l), np.int32) for l in lines]
-    for j, mel, audio in synthesize(heads, vocoder, encoded, device=device,
+    for j, mel, audio in synthesize(heads, vocoder, encoded, device=devices,
                                     max_mel_len=args.max_mel_len, batch_size=args.batch_size,
                                     dtype=torch.bfloat16 if args.amp else None):
         np.save(out_dir / f"utt_{j:04d}_mel.npy", mel)

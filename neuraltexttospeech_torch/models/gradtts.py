@@ -489,7 +489,7 @@ class Diffusion(nn.Module):
             if stoc:
                 dxt_det = (0.5 * (mu - xt) - score) * noise_t * h
                 zi = (noise[i] if noise is not None
-                      else torch.randn(z.shape, generator=generator, device=z.device))
+                      else global_draw(torch.randn, z.shape, generator, device=z.device))
                 dxt = dxt_det + zi * torch.sqrt(noise_t * h)
             else:
                 dxt = 0.5 * (mu - xt - score) * noise_t * h
@@ -579,7 +579,7 @@ class GradTTS(nn.Module):
         mu_y = torch.matmul(attn.transpose(1, 2), mu_x.to(attn.dtype))   # [B, T_mel, n_feats]
         mu_y_t = mu_y.transpose(1, 2)
         if noise is None:
-            noise = torch.randn(mu_y_t.shape, generator=generator, device=mu_y_t.device)
+            noise = global_draw(torch.randn, mu_y_t.shape, generator, device=mu_y_t.device)
         z = mu_y_t + noise / temperature
         dec = self.decoder.reverse_diffusion(z, y_mask, mu_y_t, n_timesteps, stoc, spk_v,
                                              generator=generator, noise=step_noise)

@@ -33,7 +33,7 @@ import torch.distributed.nn.functional as dist_nn
 from torch import nn
 from torch.nn import functional as F
 
-from ..parallel.mesh import current as current_mesh, global_draw
+from ..parallel.mesh import collective_mesh, global_draw
 from .precision import current, promote
 
 __all__ = ["Conv1d", "ConvTranspose1d", "Conv2d", "ConvTranspose2d", "Linear", "Embedding",
@@ -198,7 +198,7 @@ class BatchNorm(nn.Module):
         if self.training:
             dims = [d for d in range(x.dim()) if d != 1]
             xf = x.float()
-            mesh = current_mesh()
+            mesh = collective_mesh("BatchNorm's batch statistics")
             if mesh is None:
                 mean, mean_sq = xf.mean(dims), (xf * xf).mean(dims)
             else:

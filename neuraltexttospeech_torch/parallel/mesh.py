@@ -25,6 +25,13 @@ semantics:
 Rank ``r`` sits at data index ``r // n_model`` and model index
 ``r % n_model`` (JAX's ``devices.reshape(n_data, n_model)``). Ranks at or
 past ``n_data · n_model`` are in no group and run no step.
+
+A :class:`ServingReplica` is the serving loop's mesh
+(``utils/serving.py``): the replicas of one process, one a thread, each
+with its rows of the global batch. Under it :func:`global_draw` gives each
+replica its rows of the global draw, as here; it has no process group, so
+what would need a collective (:func:`global_count`, :func:`global_mean`,
+BatchNorm's batch statistics) raises.
 """
 
 from __future__ import annotations
@@ -36,9 +43,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["DATA_AXIS", "MODEL_AXIS", "Mesh", "make_mesh", "current", "shard_batch",
-           "replicated", "global_count", "global_mean", "global_draw", "reduce_metrics",
-           "FlatGrads"]
+__all__ = ["DATA_AXIS", "MODEL_AXIS", "Mesh", "ServingReplica", "make_mesh", "current",
+           "collective_mesh", "shard_batch", "replicated", "global_count", "global_mean",
+           "global_draw", "reduce_metrics", "FlatGrads"]
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -82,13 +89,39 @@ class Mesh:
         if not self.active:
             raise RuntimeError(f"rank {self.rank} is not on the {self.n_data} x "
                                f"{self.n_model} mesh")
-        stack = getattr(_state, "stack", [])
-        _state.stack = stack + [self]
-        return self
+        return _push(self)
 
     def __exit__(self, *exc):
         _state.stack = _state.stack[:-1]
         return False
+
+
+class ServingReplica:
+    """Replica ``index`` of ``n`` serving rows ``[index·b, (index+1)·b)`` of a
+    global batch of ``n·b`` rows, one a thread of one process. ``with
+    replica:`` makes it this thread's :func:`current` mesh: a data axis of
+    ``n`` with no model axis and no process group."""
+
+    n_model, model_index = 1, 0
+    group = data_group = model_group = None
+
+    def __init__(self, n: int, index: int):
+        if not 0 <= index < n:
+            raise ValueError(f"replica {index} of {n}")
+        self.n_data, self.data_index = n, index
+
+    def __enter__(self):
+        return _push(self)
+
+    def __exit__(self, *exc):
+        _state.stack = _state.stack[:-1]
+        return False
+
+
+def _push(mesh):
+    stack = getattr(_state, "stack", [])
+    _state.stack = stack + [mesh]
+    return mesh
 
 
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1) -> Mesh:
@@ -103,6 +136,16 @@ def current() -> Optional[Mesh]:
     """The mesh of the innermost ``with mesh:`` block, or None."""
     stack = getattr(_state, "stack", None)
     return stack[-1] if stack else None
+
+
+def collective_mesh(what: str) -> Optional[Mesh]:
+    """The current mesh for ``what``, a collective over its data group, or
+    None; raises under a :class:`ServingReplica`, which has no group."""
+    mesh = current()
+    if isinstance(mesh, ServingReplica):
+        raise RuntimeError(f"{what} needs a collective, and a serving replica has no "
+                           "process group")
+    return mesh
 
 
 def _rows(v) -> bool:
@@ -140,7 +183,7 @@ def global_count(x: torch.Tensor) -> torch.Tensor:
     """``x`` summed over the data group of the current mesh, without
     gradient: the global count a loss divides by. Outside ``with mesh:``
     it is ``x``."""
-    mesh = current()
+    mesh = collective_mesh("global_count")
     if mesh is None:
         return x
     x = x.detach().clone()
@@ -152,7 +195,7 @@ def global_mean(x: torch.Tensor) -> torch.Tensor:
     """The mean of ``x`` over the global batch: this rank's mean over the
     number of data shards (``torch.mean(x)`` outside ``with mesh:``). Every
     shard has ``x.numel()`` elements, so no collective is needed."""
-    mesh = current()
+    mesh = collective_mesh("global_mean")
     if mesh is None:
         return torch.mean(x)
     return torch.mean(x) / mesh.n_data
@@ -165,7 +208,16 @@ def global_draw(fn, shape: Sequence[int], generator: Optional[torch.Generator], 
     one-process step draws it. Under a mesh the draw is at the global shape,
     ``batch_axis`` times ``n_data`` (and ``model_axis``, the heads of a
     tensor-parallel block, times ``n_model``), and this rank's slices come
-    back: every rank's generator stays where the one-process step's would be."""
+    back: every rank's generator stays where the one-process step's would be.
+
+    A generator on another device than ``kwargs["device"]`` draws on its
+    own device, and the slices are copied: serving replicas on several
+    cards share the draws of one card's generator."""
+    device = kwargs.get("device")
+    if generator is not None and device is not None and torch.device(device) != generator.device:
+        kwargs["device"] = generator.device
+        return global_draw(fn, shape, generator, batch_axis=batch_axis,
+                           model_axis=model_axis, **kwargs).to(device)
     mesh = current()
     if mesh is None:
         return fn(tuple(shape), generator=generator, **kwargs)

@@ -59,6 +59,26 @@ def test_no_forbidden_import_statements():
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in pat.finditer(f.read_text(encoding="utf-8"))]
     assert not hits, hits
+    scanned = {f.name for f in files}
+    assert {"torch_trace_capture.py", "torch_trace_breakdown.py",
+            "torch_audio_compare.py"} <= scanned, scanned
+
+
+def test_port_tools_import_without_jax():
+    names = sorted(f.stem for f in (ROOT / "tools").glob("torch_*.py"))
+    code = (
+        "import importlib, sys\n"
+        f"for n in {names!r}: importlib.import_module('tools.' + n)\n"
+        "import tools.torch_trace_capture as t\n"
+        "from neuraltexttospeech_torch.utils import profiling\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_clean_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert {"torch_trace_capture", "torch_trace_breakdown", "torch_audio_compare"} <= set(names)
 
 
 def test_chip_smoke_fails_without_gpu():
@@ -87,7 +107,7 @@ def test_chip_smoke_fails_outside_the_repo(tmp_path):
 
 @pytest.mark.parametrize("cli", ["fastpitch_infer", "hifigan_infer", "diffwave_infer",
                                  "gradtts_infer", "fastspeech2_infer", "talknet_infer",
-                                 "tacotron2_infer"])
+                                 "tacotron2_infer", "flowtron_infer"])
 def test_cli_without_device_raises_when_no_gpu(cli, tmp_path):
     import importlib
 
