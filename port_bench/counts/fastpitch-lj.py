@@ -1,0 +1,49 @@
+"""FLOPs of the ``fastpitch-lj`` configuration's serving: FastPitch's
+inference and the HiFi-GAN generator, counted from the published widths at
+an utterance's own length (``tokens`` symbols, ``frames`` mel frames), not
+at the padded shapes the program computes."""
+
+from __future__ import annotations
+
+from ._layers import conv, generator_flops
+
+__all__ = ["fft_stack", "fastpitch_flops", "utterance_flops"]
+
+
+def fft_stack(n_layers: int, t: int, d: int, heads: int, d_head: int, inner: int, k: int) -> int:
+    """A stack of FFT blocks over ``t`` positions."""
+    hd = heads * d_head
+    per = (2 * t * d * 3 * hd          # qkv
+           + 2 * 2 * heads * t * t * d_head  # scores and the weighted sum
+           + 2 * t * hd * d            # o
+           + conv(t, d, inner, k) + conv(t, inner, d, k))
+    return n_layers * per
+
+
+def _predictor(t: int, d: int, filt: int, k: int, n_layers: int) -> int:
+    return (conv(t, d, filt, k) + (n_layers - 1) * conv(t, filt, filt, k)
+            + 2 * t * filt)
+
+
+def fastpitch_flops(c: dict, tokens: int, frames: int) -> int:
+    d = c["symbols_embedding_dim"]
+    return (fft_stack(c["in_fft_n_layers"], tokens, d, c["in_fft_n_heads"], c["in_fft_d_head"],
+                      c["in_fft_conv1d_filter_size"], c["in_fft_conv1d_kernel_size"])
+            + _predictor(tokens, d, c["dur_predictor_filter_size"],
+                         c["dur_predictor_kernel_size"], c["dur_predictor_n_layers"])
+            + _predictor(tokens, d, c["pitch_predictor_filter_size"],
+                         c["pitch_predictor_kernel_size"], c["pitch_predictor_n_layers"])
+            + _predictor(tokens, d, c["energy_predictor_filter_size"],
+                         c["energy_predictor_kernel_size"], c["energy_predictor_n_layers"])
+            + conv(tokens, 1, d, c["pitch_embedding_kernel_size"])
+            + conv(tokens, 1, d, c["energy_embedding_kernel_size"])
+            + fft_stack(c["out_fft_n_layers"], frames, d, c["out_fft_n_heads"],
+                        c["out_fft_d_head"], c["out_fft_conv1d_filter_size"],
+                        c["out_fft_conv1d_kernel_size"])
+            + 2 * frames * d * c["n_mel_channels"])
+
+
+def utterance_flops(cfg: dict, tokens: int, frames: int) -> int:
+    """Text → mel → audio of one utterance."""
+    return fastpitch_flops(cfg["fastpitch"], tokens, frames) + generator_flops(cfg["vocoder"],
+                                                                               frames)
