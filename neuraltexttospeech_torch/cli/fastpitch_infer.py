@@ -33,6 +33,7 @@ from ..data.filelist import save_wav
 from ..models.registry import load_checkpoint, load_frontend_config
 from ..text.processing import TextProcessing
 from ..utils.device import resolve_devices
+from ..utils.profiling import span
 from ..utils.serving import Replicas, round_up, serving_sharding, text_batches
 from .hifigan_infer import load_generator, vocode_replicas
 
@@ -84,6 +85,11 @@ def synthesize(fastpitch, generator, encoded: Sequence[np.ndarray], *,
     ``frame_bucket`` frames. Padding is not neutral: the predictors' second
     conv sees the first one's nonzero outputs at padded positions, so the
     last tokens' durations depend on the bucket, in the JAX CLI as here.
+
+    With tracing on (``utils/profiling.py``) each batch is a ``serve.batch``
+    span, closed before its utterances are yielded, holding each replica's
+    ``serve.acoustic`` (device-timed) and ``serve.wait`` (the host read of
+    the lengths) and the vocoder stage's spans (``vocode_replicas``).
     """
     devices = resolve_devices(device)
     put, replicate, batch_size = serving_sharding(batch_size, devices)
@@ -91,16 +97,20 @@ def synthesize(fastpitch, generator, encoded: Sequence[np.ndarray], *,
     generators = None if generator is None else replicate(generator)
 
     def infer(i, text, lens):
-        mel, dec_lens = models[i].infer(text, lens, pace=pace, max_mel_len=max_mel_len)[:2]
-        # the host boundary is f32 whatever the compute type
-        return mel.float(), dec_lens.cpu().numpy()
+        with span("serve.acoustic", text.device):
+            mel, dec_lens = models[i].infer(text, lens, pace=pace, max_mel_len=max_mel_len)[:2]
+            # the host boundary is f32 whatever the compute type
+            mel = mel.float()
+        with span("serve.wait"):
+            return mel, dec_lens.cpu().numpy()
 
     with Replicas(devices) as replicas:
         for idxs, text, lens in text_batches(encoded, batch_size, text_bucket):
-            mels, dec_lens = zip(*replicas.map(infer, put(text), put(lens), dtype=dtype))
-            dec_lens = np.concatenate(dec_lens)
-            M = min(round_up(int(dec_lens[:len(idxs)].max()), frame_bucket), max_mel_len)
-            mel, audio = vocode_replicas(replicas, generators, mels, M, dtype)
+            with span("serve.batch"):
+                mels, dec_lens = zip(*replicas.map(infer, put(text), put(lens), dtype=dtype))
+                dec_lens = np.concatenate(dec_lens)
+                M = min(round_up(int(dec_lens[:len(idxs)].max()), frame_bucket), max_mel_len)
+                mel, audio = vocode_replicas(replicas, generators, mels, M, dtype)
             for r, j in enumerate(idxs):
                 n = int(dec_lens[r])
                 yield j, mel[r, :n], (None if audio is None else audio[r, :n * hop_length])

@@ -29,6 +29,7 @@ from ..models.hifigan import HiFiGANConfig
 from ..models.registry import load_checkpoint
 from ..nn.precision import compute_dtype
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 
 
 def parse_args(argv=None):
@@ -99,14 +100,21 @@ def vocode_replicas(replicas, generators, mels, frames: int,
     ``generators`` (one a replica), vocoded at their first ``frames`` frames,
     the vocoder bucket the caller took over the whole batch. Returns the
     batch's ``(mel [B, T, num_mels], audio [B, frames·hop] or None)``, rows in
-    replica order."""
+    replica order. With tracing on, each replica's ``serve.vocoder`` and
+    ``serve.to_host`` spans are device-timed."""
     def run(i, mel):
         audio = None
-        if generators is not None:
+        if generators is not None and frames:
+            with span("serve.vocoder", mel.device):
+                audio = vocode(generators[i], mel[:, :frames], dtype)
+        with span("serve.to_host", mel.device):
+            if audio is not None:
+                audio = audio.cpu().numpy()
+            mel = mel.cpu().numpy()
+        if generators is not None and not frames:
             # a batch whose utterances all got 0 frames has nothing to vocode
-            audio = (vocode(generators[i], mel[:, :frames], dtype).cpu().numpy() if frames
-                     else np.zeros((len(mel), 0), np.float32))
-        return mel.cpu().numpy(), audio
+            audio = np.zeros((len(mel), 0), np.float32)
+        return mel, audio
 
     mel, audio = zip(*replicas.map(run, mels))
     return np.concatenate(mel), None if generators is None else np.concatenate(audio)

@@ -31,6 +31,11 @@ rank 0's.
 both lanes run their convs in bf16 (``nn/precision.py``; the MSD's through
 B2's bf16 form), the generated audio is cast to f32 before its log-mel (B1 stays f32, as in
 JAX), and the three Adams step the f32 parameters with f32 gradients.
+
+With tracing on (``utils/profiling.py``) a step is a ``gan.step`` span
+holding ``gan.mel`` (both target log-mels of an audio-only batch),
+``gan.generator`` (its forward and loss mel), ``gan.disc`` (the MPD and MSD
+passes and every loss), ``gan.backward`` and ``gan.optim`` (the three Adams).
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from ..nn.precision import compute_dtype
 from ..ops.mel_kernel import fused_mel_spectrogram
 from ..parallel.mesh import (FlatGrads, Mesh, global_mean, reduce_metrics, replicated,
                              shard_batch)
+from ..utils.profiling import span
 from .hifigan import (
     Generator, HiFiGANConfig, MultiPeriodDiscriminator, MultiScaleDiscriminator,
     discriminator_loss, feature_loss, generator_loss, resolve_msd_group_impl,
@@ -144,13 +150,15 @@ class HiFiGANTrainer:
         both in the step); under a mesh, this rank's rows of the global batch
         (:meth:`device_iter`'s). Returns the metrics as 0-d f32 tensors on
         the device."""
-        metrics = self.losses_and_grads(batch)
-        lr = learning_rate(self.config, self.step, self.steps_per_epoch)  # pre-update step
-        for opt in self.optimizers.values():
-            for group in opt.param_groups:
-                group["lr"] = lr
-            opt.step()
-        self.step += 1
+        with span("gan.step"):
+            metrics = self.losses_and_grads(batch)
+            with span("gan.optim"):
+                lr = learning_rate(self.config, self.step, self.steps_per_epoch)  # pre-update
+                for opt in self.optimizers.values():
+                    for group in opt.param_groups:
+                        group["lr"] = lr
+                    opt.step()
+            self.step += 1
         return metrics
 
     def device_iter(self, batches: Iterable[Dict[str, torch.Tensor]]):
@@ -181,47 +189,50 @@ class HiFiGANTrainer:
         if "mel" in batch:
             mel, mel_target = batch["mel"], batch["mel_loss"]
         else:
-            with torch.no_grad():
+            with span("gan.mel"), torch.no_grad():
                 mel = mel_for_loss(y[..., 0], self.input_cfg)
                 mel_target = mel_for_loss(y[..., 0], self.loss_cfg)
         for opt in self.optimizers.values():
             opt.zero_grad(set_to_none=True)
 
-        y_hat = self.gen(mel)
-        y_hat_mel = mel_for_loss(y_hat[..., 0], self.loss_cfg)
-        loss_mel = global_mean(torch.abs(y_hat_mel - mel_target)) * 45.0
+        with span("gan.generator"):
+            y_hat = self.gen(mel)
+            y_hat_mel = mel_for_loss(y_hat[..., 0], self.loss_cfg)
+            loss_mel = global_mean(torch.abs(y_hat_mel - mel_target)) * 45.0
 
-        # generator lane: pre-step discriminators, pre-step SN stats, no
-        # discriminator grads
-        disc_params = list(self.mpd.parameters()) + list(self.msd.parameters())
-        for p in disc_params:
-            p.requires_grad_(False)
-        try:
-            df_g, fmap_f_g = self.mpd.scores(y_hat)
-            ds_g, fmap_s_g = self.msd.scores(y_hat, update_stats=False)
-        finally:
+        with span("gan.disc"):
+            # generator lane: pre-step discriminators, pre-step SN stats, no
+            # discriminator grads
+            disc_params = list(self.mpd.parameters()) + list(self.msd.parameters())
             for p in disc_params:
-                p.requires_grad_(True)
+                p.requires_grad_(False)
+            try:
+                df_g, fmap_f_g = self.mpd.scores(y_hat)
+                ds_g, fmap_s_g = self.msd.scores(y_hat, update_stats=False)
+            finally:
+                for p in disc_params:
+                    p.requires_grad_(True)
 
-        # discriminator lane (real pass shared with the generator lane)
-        df_r, fmap_f_r = self.mpd.scores(y)
-        ds_r, fmap_s_r = self.msd.scores(y, update_stats=True)
-        y_hat_d = y_hat.detach()
-        df_gd, _ = self.mpd.scores(y_hat_d)
-        ds_gd, _ = self.msd.scores(y_hat_d, update_stats=True)
-        loss_mpd, _, _ = discriminator_loss(df_r, df_gd)
-        loss_msd, _, _ = discriminator_loss(ds_r, ds_gd)
-        d_loss = loss_mpd + loss_msd
+            # discriminator lane (real pass shared with the generator lane)
+            df_r, fmap_f_r = self.mpd.scores(y)
+            ds_r, fmap_s_r = self.msd.scores(y, update_stats=True)
+            y_hat_d = y_hat.detach()
+            df_gd, _ = self.mpd.scores(y_hat_d)
+            ds_gd, _ = self.msd.scores(y_hat_d, update_stats=True)
+            loss_mpd, _, _ = discriminator_loss(df_r, df_gd)
+            loss_msd, _, _ = discriminator_loss(ds_r, ds_gd)
+            d_loss = loss_mpd + loss_msd
 
-        def detached(fmaps):
-            return [[f.detach() for f in per_d] for per_d in fmaps]
+            def detached(fmaps):
+                return [[f.detach() for f in per_d] for per_d in fmaps]
 
-        loss_fm = (feature_loss(detached(fmap_f_r), fmap_f_g)
-                   + feature_loss(detached(fmap_s_r), fmap_s_g))
-        loss_adv = generator_loss(df_g)[0] + generator_loss(ds_g)[0]
-        g_loss = loss_adv + loss_fm + loss_mel
-        # the lanes share no parameter, so one backward gives both lanes' grads
-        (g_loss + d_loss).backward()
+            loss_fm = (feature_loss(detached(fmap_f_r), fmap_f_g)
+                       + feature_loss(detached(fmap_s_r), fmap_s_g))
+            loss_adv = generator_loss(df_g)[0] + generator_loss(ds_g)[0]
+            g_loss = loss_adv + loss_fm + loss_mel
+        with span("gan.backward"):
+            # the lanes share no parameter, so one backward gives both lanes' grads
+            (g_loss + d_loss).backward()
         return {"gen_loss": g_loss, "mel_l1_x45": loss_mel, "fm_loss": loss_fm,
                 "adv_loss": loss_adv, "disc_loss": d_loss, "disc_mpd": loss_mpd,
                 "disc_msd": loss_msd}

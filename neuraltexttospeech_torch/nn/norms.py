@@ -16,6 +16,9 @@ weight ``[Cout, Cin/g, K]`` or a ``ConvTranspose1d`` weight ``[Cin, Cout, K]``
   ``update_stats=True`` the new ``u`` and ``sigma`` are stored, so a second
   call in the same step starts from the ``u`` that the first one wrote, as in
   flax.
+
+With tracing on (``utils/profiling.py``) each computation of either counts
+as ``norms.weight_norm``.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 from torch.nn.utils import parametrize
+
+from ..utils.profiling import count
 
 __all__ = ["WeightNorm", "SpectralNorm", "weight_norm", "folded_state_dict"]
 
@@ -37,6 +42,7 @@ class WeightNorm(nn.Module):
     """Parametrization ``(v, scale) -> v * rsqrt(sum v^2 + 1e-12) * scale``."""
 
     def forward(self, v: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+        count("norms.weight_norm")
         dims = tuple(range(1, v.ndim))
         return _l2_normalize(v, dims) * scale.reshape((-1,) + (1,) * (v.ndim - 1))
 
@@ -76,6 +82,7 @@ class SpectralNorm(nn.Module):
         self.register_buffer("sigma", torch.ones(()))
 
     def forward(self, w: torch.Tensor, update_stats: bool) -> torch.Tensor:
+        count("norms.weight_norm")
         mat = w.reshape(w.shape[0], -1)  # [Cout, rest]: flax's (-1, Cout) transposed
         with torch.no_grad():
             v = _l2_normalize(self.u @ mat, (-1,))

@@ -17,7 +17,8 @@ op lists differ between the CPU and CUDA (CUDA's runs ``sum``, ``exp``,
 ``softmax`` and ``layer_norm`` in f32, the CPU's ``reflection_pad`` and the
 losses), this gives the same arithmetic on both devices, so the CPU tests
 hold the card's semantics against JAX. With no compute dtype set (the
-default) :func:`promote` changes nothing.
+default) :func:`promote` changes nothing. With tracing on
+(``utils/profiling.py``) it counts the tensors it casts, ``precision.casts``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ import threading
 from typing import Optional
 
 import torch
+
+from ..utils import profiling
 
 __all__ = ["compute_dtype", "current", "promote"]
 
@@ -56,4 +59,7 @@ def promote(*tensors):
     dtype = current()
     if dtype is None:
         return tensors
+    if profiling.tracing():
+        profiling.count("precision.casts",
+                        sum(t is not None and t.dtype != dtype for t in tensors))
     return tuple(None if t is None else t.to(dtype) for t in tensors)

@@ -14,6 +14,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from ..utils.profiling import span
 from . import cleaners as _cleaners_mod
 from .cmudict import CMUDict
 from .numbers import CURRENCY_RE, expand_currency_text
@@ -143,47 +144,48 @@ class TextProcessing:
     # -- public entry ----------------------------------------------------------
 
     def encode_text(self, text: str, return_all: bool = False):
-        if self.expand_currency:
-            text = CURRENCY_RE.sub(expand_currency_text, text)
-        # clean chunk-by-chunk so pre-encoded {ARPAbet} survives cleaning
-        cleaned_chunks = [
-            chunk if chunk.startswith("{") else self.clean_text(chunk)
-            for chunk in _ARPA_SPLIT_RE.findall(text)
-        ]
-        text_clean = _cleaners_mod.collapse_whitespace(" ".join(cleaned_chunks))
-        text = text_clean
+        with span("text.encode"):
+            if self.expand_currency:
+                text = CURRENCY_RE.sub(expand_currency_text, text)
+            # clean chunk-by-chunk so pre-encoded {ARPAbet} survives cleaning
+            cleaned_chunks = [
+                chunk if chunk.startswith("{") else self.clean_text(chunk)
+                for chunk in _ARPA_SPLIT_RE.findall(text)
+            ]
+            text_clean = _cleaners_mod.collapse_whitespace(" ".join(cleaned_chunks))
+            text = text_clean
 
-        text_arpabet = ""
-        if self.p_arpabet > 0 and self.handle_arpabet:
-            words = _WORDS_RE.findall(text)
-            if self.handle_arpabet == "sequence":
-                if self._rng.uniform() < self.p_arpabet:
+            text_arpabet = ""
+            if self.p_arpabet > 0 and self.handle_arpabet:
+                words = _WORDS_RE.findall(text)
+                if self.handle_arpabet == "sequence":
+                    if self._rng.uniform() < self.p_arpabet:
+                        text_arpabet = "".join(
+                            self.get_arpabet(w) if w else other
+                            for (w, other) in words
+                        )
+                        text = text_arpabet
+                elif self.handle_arpabet == "word":
                     text_arpabet = "".join(
-                        self.get_arpabet(w) if w else other
+                        other
+                        if not w
+                        else (
+                            self.get_arpabet(w)
+                            if self._rng.uniform() < self.p_arpabet
+                            else w
+                        )
                         for (w, other) in words
                     )
                     text = text_arpabet
-            elif self.handle_arpabet == "word":
-                text_arpabet = "".join(
-                    other
-                    if not w
-                    else (
-                        self.get_arpabet(w)
-                        if self._rng.uniform() < self.p_arpabet
-                        else w
+                else:
+                    raise ValueError(
+                        f"unsupported handle_arpabet: {self.handle_arpabet!r}"
                     )
-                    for (w, other) in words
-                )
-                text = text_arpabet
-            else:
-                raise ValueError(
-                    f"unsupported handle_arpabet: {self.handle_arpabet!r}"
-                )
 
-        encoded = self.text_to_sequence(text)
-        if return_all:
-            return encoded, text_clean, text_arpabet
-        return encoded
+            encoded = self.text_to_sequence(text)
+            if return_all:
+                return encoded, text_clean, text_arpabet
+            return encoded
 
 
 def intersperse(sequence: Sequence[int], item: int) -> List[int]:

@@ -3,40 +3,60 @@
 
 ``trace`` records the host and the card with ``torch.profiler`` and writes a
 Chrome trace (``chrome://tracing``, Perfetto) into a directory, where JAX
-writes an XProf trace; ``annotate`` names a region inside it
-(``torch.profiler.record_function``); ``StepTimer`` is a rolling
-steps/s and items/s meter for training loops.
+writes an XProf trace.
+
+The program's own spans and counters: :func:`span` marks a stage where the
+work happens and :func:`count` adds to a count of the innermost open span.
+They record only while a ``torch.profiler`` profile is recording (``trace``,
+or any ``torch.profiler.profile`` block): tracing is off otherwise, and then
+a span is one flag check and a shared no-op context, a count one flag check.
+On, a span is also a ``torch.profiler.record_function`` range, so the trace
+shows it over its kernels, and its record is kept in memory with host stamps
+on the clock of the profiler's own records (``time.time_ns``, the Unix-epoch
+scale of ``KinetoEvent.start_ns``) and, given a CUDA device, CUDA events at
+both ends on the current stream. :func:`spans` returns the finished records
+(device times resolved), :func:`reset` clears them.
 
 ``breakdown`` reads a finished profile (its raw records, not the profiler's
 ``key_averages``, which take ~20 s on a trace of 100k launches) and
 ``chrome_breakdown`` the Chrome trace ``trace`` writes. Both give a
 :class:`Breakdown`: the card's busy time as the union of its kernels'
 intervals (kernels that overlap count once), the idle share of the traced
-window, and the time and launches by kernel and by :func:`category` (GEMM,
+window, the time and launches by kernel and by :func:`category` (GEMM,
 cuDNN conv, elementwise, reduction, copy/memset, the port's kernels B1, B2
-f32, B2 bf16 and MAS, other), each per step.
+f32, B2 bf16 and MAS, other), each per step, and the longest idle gaps
+between device records, each named by the host op under it and the
+innermost program span over that op.
 """
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import dataclasses
 import glob
+import itertools
 import json
 import os
+import threading
 import time
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["trace", "annotate", "StepTimer", "Breakdown", "breakdown", "chrome_breakdown",
-           "load_chrome_trace", "category", "CATEGORIES"]
+from ..parallel.mesh import ServingReplica
+from ..parallel.mesh import current as _current_mesh
+
+__all__ = ["trace", "span", "count", "tracing", "spans", "reset", "SpanRecord", "Breakdown",
+           "breakdown", "chrome_breakdown", "load_chrome_trace", "category", "CATEGORIES"]
 
 
 @contextlib.contextmanager
 def trace(logdir: str):
     """Profile the block (the CPU, and the card when there is one) and write
-    its Chrome trace to ``logdir/trace_<pid>.json``."""
+    its Chrome trace to ``logdir/trace_<pid>.json``. The program's spans and
+    counters record while it runs."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -46,39 +66,135 @@ def trace(logdir: str):
     prof.export_chrome_trace(os.path.join(logdir, f"trace_{os.getpid()}.json"))
 
 
-def annotate(name: str):
-    """Named region inside a trace (``with annotate("decoder"): ...``)."""
-    return torch.profiler.record_function(name)
+# ------------------------------------------------------------ spans and counters
 
+@dataclasses.dataclass
+class SpanRecord:
+    """One finished span: ``id``, ``parent`` (the id of the innermost span
+    open on the same thread when it opened, or None), the native ``thread``
+    id, the serving ``replica`` index it ran in (None outside one), host
+    stamps in ns on the profiler's clock, ``child_ns`` (the host time its
+    children took), its ``counts`` and, for a span given a CUDA device,
+    ``device_ms``: CUDA-event milliseconds between its two markers on the
+    stream, which include any idle time of the stream between them."""
 
-class StepTimer:
-    """Rolling steps/sec + items/sec meter for training loops."""
-
-    def __init__(self, window: int = 50):
-        self.window = window
-        self._times: list[float] = []
-        self._items: list[int] = []
-
-    def tick(self, n_items: int = 1):
-        self._times.append(time.perf_counter())
-        self._items.append(n_items)
-        if len(self._times) > self.window + 1:
-            self._times.pop(0)
-            self._items.pop(0)
-
-    @property
-    def steps_per_sec(self) -> Optional[float]:
-        if len(self._times) < 2:
-            return None
-        dt = self._times[-1] - self._times[0]
-        return (len(self._times) - 1) / dt if dt > 0 else None
+    name: str
+    id: int
+    parent: Optional[int]
+    thread: int
+    replica: Optional[int]
+    start_ns: int
+    end_ns: int = 0
+    child_ns: int = 0
+    counts: Dict[str, int] = dataclasses.field(default_factory=dict)
+    device_ms: Optional[float] = None
+    events: Optional[tuple] = dataclasses.field(default=None, repr=False)
 
     @property
-    def items_per_sec(self) -> Optional[float]:
-        if len(self._times) < 2:
-            return None
-        dt = self._times[-1] - self._times[0]
-        return sum(self._items[1:]) / dt if dt > 0 else None
+    def host_ms(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e6
+
+    @property
+    def self_ms(self) -> float:
+        """Host ms less the time its children took."""
+        return (self.end_ns - self.start_ns - self.child_ns) / 1e6
+
+
+_OFF = contextlib.nullcontext()
+_local = threading.local()  # each thread's stack of open spans
+_ids = itertools.count(1)
+_finished: List[SpanRecord] = []
+
+
+def tracing() -> bool:
+    """Whether a ``torch.profiler`` profile is recording (the flag its
+    ``__enter__`` sets), and so whether spans and counts record."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def _stack() -> List[SpanRecord]:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+class _Span:
+    __slots__ = ("name", "device", "rf", "record")
+
+    def __init__(self, name: str, device):
+        self.name = name
+        self.device = device if device is not None and torch.device(device).type == "cuda" \
+            else None
+
+    def __enter__(self) -> SpanRecord:
+        stack = _stack()
+        mesh = _current_mesh()
+        self.rf = torch.profiler.record_function(self.name)
+        self.rf.__enter__()
+        # the host stamps lie just inside the range, the device markers just
+        # around the block
+        rec = self.record = SpanRecord(
+            self.name, next(_ids), stack[-1].id if stack else None, threading.get_native_id(),
+            mesh.data_index if isinstance(mesh, ServingReplica) else None, time.time_ns())
+        if self.device is not None:
+            rec.events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            rec.events[0].record(torch.cuda.current_stream(self.device))
+        stack.append(rec)
+        return rec
+
+    def __exit__(self, *exc):
+        rec = self.record
+        if rec.events is not None:
+            rec.events[1].record(torch.cuda.current_stream(self.device))
+        stack = _stack()
+        stack.pop()
+        rec.end_ns = time.time_ns()
+        self.rf.__exit__(*exc)
+        if stack:
+            stack[-1].child_ns += rec.end_ns - rec.start_ns
+        _finished.append(rec)
+        return False
+
+
+def span(name: str, device=None):
+    """A context manager marking one stage of the program: with tracing on
+    (:func:`tracing`) a ``record_function`` range and a :class:`SpanRecord`
+    (CUDA events at both ends with a CUDA ``device``); off, a shared no-op.
+    Names start neither with ``aten::`` nor with ``cu``, which trace readers
+    take for host ops, and hold no ``#``, which marks PyTorch's own ranges."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, device)
+
+
+def count(name: str, n: int = 1):
+    """Add ``n`` to the count ``name`` of the innermost span open on this
+    thread, with tracing on; a count outside every span is not kept."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    stack = getattr(_local, "stack", None)
+    if stack:
+        counts = stack[-1].counts
+        counts[name] = counts.get(name, 0) + n
+
+
+def spans() -> List[SpanRecord]:
+    """The finished spans since the last :func:`reset`, in the order they
+    closed, each one's device time resolved (waiting for its end marker)."""
+    out = list(_finished)
+    for rec in out:
+        if rec.events is not None:
+            start, end = rec.events
+            end.synchronize()
+            rec.device_ms, rec.events = start.elapsed_time(end), None
+    return out
+
+
+def reset():
+    """Forget the finished spans."""
+    _finished.clear()
 
 
 CATEGORIES = ("GEMM", "cuDNN conv", "elementwise", "reduction", "copy/memset", "B1", "B2 f32",
@@ -131,7 +247,10 @@ class Breakdown:
     its last, host and device; ``kernels`` maps each device record's name to
     its (summed ms, count); ``runtime`` each host CUDA runtime or driver call
     to its (count, ms); ``ops`` each ``aten::`` op to its count (empty for a
-    Chrome trace of the card's records only)."""
+    Chrome trace of the card's records only); ``gaps`` the :data:`GAPS`
+    longest idle stretches between device records, longest first, as (ms,
+    the innermost program span over the host's work in the gap or ``""``,
+    the host op or CUDA call that overlaps it most or ``"host"``)."""
 
     steps: int
     busy_ms: float
@@ -139,6 +258,7 @@ class Breakdown:
     kernels: Dict[str, Tuple[float, int]]
     runtime: Dict[str, Tuple[int, float]]
     ops: Dict[str, int]
+    gaps: List[Tuple[float, str, str]]
 
     @property
     def idle_share(self) -> float:
@@ -169,7 +289,7 @@ class Breakdown:
 
     def table(self, top: int = 20) -> str:
         """The summary, by category and by kernel, in ms a step with each
-        one's share of the summed kernel time."""
+        one's share of the summed kernel time, then the longest idle gaps."""
         k, s = self.kernel_sum_ms or 1.0, self.steps
         lines = [f"card busy {self.busy_ms / s:.3f} ms/step of a {self.window_ms / s:.3f} ms/step "
                  f"window (idle share {self.idle_share:.3f}); kernel times sum to "
@@ -184,6 +304,11 @@ class Breakdown:
         for ms, n, name in self.top(top):
             lines.append(f"{ms / s:>10.3f}{100 * ms / k:>7.1f}{n / s:>15.1f}  "
                          f"{name[:90]} ({category(name)})")
+        if self.gaps:
+            lines += ["", f"-- {len(self.gaps)} longest idle gaps {'-' * 40}",
+                      f"{'ms':>10}  span / host op under it"]
+        for ms, name, op in self.gaps:
+            lines.append(f"{ms:>10.3f}  {name or '(no span)'} / {op[:70]}")
         return "\n".join(lines)
 
 
@@ -195,33 +320,80 @@ def _union_ms(spans: Iterable[Tuple[float, float]]) -> float:
     return busy
 
 
+GAPS = 10
+
+
+def _is_program_span(name: str) -> bool:
+    """A host range the program opened (:func:`span`), not one of PyTorch's
+    own (``Optimizer.step#Adam.step``, ``ProfilerStep#3``)."""
+    return "#" not in name
+
+
+def _named_gaps(device: List[Tuple[float, float]], ranges: List[Tuple[float, float, str]],
+                host: List[Tuple[float, float, str]], n: int = GAPS):
+    """The ``n`` longest gaps between the ``device`` intervals, each as (ms,
+    the innermost of ``ranges`` (the program's spans) over the host's work in
+    it, the ``host`` record that overlaps it most); all times in ms. The span
+    is the one over the middle of that record's overlap with the gap (of the
+    gap, where no record overlaps it), so it holds the op named beside it."""
+    gaps, end = [], None
+    for start, stop in sorted(device):
+        if end is not None and start > end:
+            gaps.append((end, start))
+        end = stop if end is None else max(end, stop)
+    gaps = sorted(gaps, key=lambda g: g[0] - g[1])[:n]
+    host = sorted(host)
+    starts = [h[0] for h in host]
+    longest = max((h[1] - h[0] for h in host), default=0.0)
+    out = []
+    for g0, g1 in gaps:
+        best, op, mid = 0.0, "host", (g0 + g1) / 2
+        for h0, h1, hname in host[bisect.bisect_left(starts, g0 - longest):
+                                  bisect.bisect_right(starts, g1)]:
+            overlap = min(h1, g1) - max(h0, g0)
+            if overlap > best:
+                best, op, mid = overlap, hname, (max(h0, g0) + min(h1, g1)) / 2
+        over = [r for r in ranges if r[0] <= mid <= r[1]]
+        name = max(over, key=lambda r: (r[0], -r[1]))[2] if over else ""
+        out.append((g1 - g0, name, op))
+    return out
+
+
 def breakdown(prof, steps: int = 1) -> Breakdown:
     """The :class:`Breakdown` of a finished ``torch.profiler.profile`` (its
     raw records: building the profiler's ``FunctionEvent``s took 17 s for a
     trace of 11k launches) of ``steps`` steps. GPU user annotations are
-    ranges, not device work, and are left out."""
+    ranges, not device work, and are left out; host ones are the program's
+    spans that name the idle gaps."""
     from torch.autograd import DeviceType
 
     kernels: Dict[str, Tuple[float, int]] = {}
     ops: Dict[str, int] = {}
     runtime: Dict[str, Tuple[int, float]] = {}
-    spans, first, last = [], float("inf"), float("-inf")
+    device, ranges, host = [], [], []
+    first, last = float("inf"), float("-inf")
     for e in prof.profiler.kineto_results.events():
         name, start, dur = e.name(), e.start_ns() / 1e6, e.duration_ns() / 1e6
         if e.device_type() == DeviceType.CUDA:
             if e.is_user_annotation():
                 continue
-            total, count = kernels.get(name, (0.0, 0))
-            kernels[name] = (total + dur, count + 1)
-            spans.append((start, start + dur))
+            total, n = kernels.get(name, (0.0, 0))
+            kernels[name] = (total + dur, n + 1)
+            device.append((start, start + dur))
+        elif e.is_user_annotation():
+            if _is_program_span(name):
+                ranges.append((start, start + dur, name))
         elif name.startswith("aten::"):
             ops[name] = ops.get(name, 0) + 1
+            host.append((start, start + dur, name))
         elif name.startswith(("cuda", "cu")):
-            count, total = runtime.get(name, (0, 0.0))
-            runtime[name] = (count + 1, total + dur)
+            n, total = runtime.get(name, (0, 0.0))
+            runtime[name] = (n + 1, total + dur)
+            host.append((start, start + dur, name))
         first, last = min(first, start), max(last, start + dur)
     window = last - first if last > first else 0.0
-    return Breakdown(steps, _union_ms(spans), window, kernels, runtime, ops)
+    return Breakdown(steps, _union_ms(device), window, kernels, runtime, ops,
+                     _named_gaps(device, ranges, host))
 
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -244,27 +416,34 @@ def chrome_breakdown(trace_json: dict, steps: int = 1) -> Breakdown:
     exported (``traceEvents`` of phase ``X``, times in µs): its device
     records are those of category ``kernel``, ``gpu_memcpy`` and
     ``gpu_memset``, its host CUDA calls those of ``cuda_runtime`` and
-    ``cuda_driver``, its ops the ``cpu_op`` records named ``aten::``."""
+    ``cuda_driver``, its ops the ``cpu_op`` records named ``aten::``, the
+    program's spans its ``user_annotation`` ranges."""
     kernels: Dict[str, Tuple[float, int]] = {}
     ops: Dict[str, int] = {}
     runtime: Dict[str, Tuple[int, float]] = {}
-    spans, first, last = [], float("inf"), float("-inf")
+    device, ranges, host = [], [], []
+    first, last = float("inf"), float("-inf")
     for e in trace_json.get("traceEvents", []):
         if e.get("ph") != "X" or "ts" not in e:
             continue
         name, cat = e.get("name", ""), e.get("cat", "")
         start, dur = float(e["ts"]) / 1e3, float(e.get("dur", 0.0)) / 1e3
         if cat in _DEVICE_CATS:
-            total, count = kernels.get(name, (0.0, 0))
-            kernels[name] = (total + dur, count + 1)
-            spans.append((start, start + dur))
+            total, n = kernels.get(name, (0.0, 0))
+            kernels[name] = (total + dur, n + 1)
+            device.append((start, start + dur))
         elif cat in ("cuda_runtime", "cuda_driver"):
-            count, total = runtime.get(name, (0, 0.0))
-            runtime[name] = (count + 1, total + dur)
+            n, total = runtime.get(name, (0, 0.0))
+            runtime[name] = (n + 1, total + dur)
+            host.append((start, start + dur, name))
         elif cat == "cpu_op" and name.startswith("aten::"):
             ops[name] = ops.get(name, 0) + 1
+            host.append((start, start + dur, name))
+        elif cat == "user_annotation" and _is_program_span(name):
+            ranges.append((start, start + dur, name))
         elif cat == "gpu_user_annotation":
             continue
         first, last = min(first, start), max(last, start + dur)
     window = last - first if last > first else 0.0
-    return Breakdown(steps, _union_ms(spans), window, kernels, runtime, ops)
+    return Breakdown(steps, _union_ms(device), window, kernels, runtime, ops,
+                     _named_gaps(device, ranges, host))

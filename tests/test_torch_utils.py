@@ -5,7 +5,7 @@
 The utilities are held as ``tests/test_misc.py:57-86`` holds JAX's, and
 against JAX's on the same inputs: the plots give the same pixels, and
 ``AttrDict.override`` the same dict. ``trace`` writes a Chrome trace of a
-CPU op. The tool's ``build_corpus`` and its parsers of the trainer CLIs' epoch
+CPU op inside a span (the spans themselves: ``tests/test_torch_tracing.py``). The tool's ``build_corpus`` and its parsers of the trainer CLIs' epoch
 lines run here; the CLIs themselves run on the card (``chip_smoke.py``).
 """
 
@@ -20,16 +20,6 @@ from neuraltexttospeech_torch.utils import masking, plotting, profiling
 from neuraltexttospeech_tpu.utils import masking as jax_masking
 from neuraltexttospeech_tpu.utils import plotting as jax_plotting
 from tools import torch_cli_throughput as tool
-
-
-def test_step_timer():
-    t = profiling.StepTimer(window=4)
-    assert t.steps_per_sec is None and t.items_per_sec is None
-    for _ in range(6):
-        t.tick(8)
-    assert len(t._times) == 5  # the window plus one
-    assert t.steps_per_sec and t.steps_per_sec > 0
-    assert t.items_per_sec == pytest.approx(8 * t.steps_per_sec)
 
 
 def test_plotting_roundtrip_matches_jax():
@@ -56,7 +46,7 @@ def test_attrdict_override_matches_jax():
 
 def test_trace_writes_a_chrome_trace(tmp_path):
     with profiling.trace(str(tmp_path / "t")):
-        with profiling.annotate("matmul_region"):
+        with profiling.span("matmul_region"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     (path,) = (tmp_path / "t").glob("trace_*.json")
     names = {e.get("name") for e in json.loads(path.read_text())["traceEvents"]}

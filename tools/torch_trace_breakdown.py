@@ -11,8 +11,10 @@ traced steps), the card's busy time (the union of its kernels' intervals,
 so kernels that overlap count once), the idle share of the traced window,
 the time and launches by category (GEMM, cuDNN conv, elementwise,
 reduction, copy/memset, the port's kernels B1, B2 f32, B2 bf16 and MAS,
-other) and the top kernels, each with its share of the summed kernel time
-(``utils/profiling.py::chrome_breakdown``).
+other) and the top kernels, each with its share of the summed kernel time,
+then the longest idle gaps between device records, each named by the host op
+under it and the program's span over that op (``utils/profiling.py::span``;
+``utils/profiling.py::chrome_breakdown``).
 
 The JAX tool's GB/s column has no counterpart: ``torch.profiler`` records
 no bytes a kernel, and this tool does not estimate them.

@@ -18,13 +18,21 @@ full-width configs with random weights from a seed:
   frames, ``out_size`` 172;
 - ``talknet_spec_train``: a TalkNet 2 spectrogram-head step, 16 × 128 tokens
   × 768 frames;
-- ``fastpitch_infer``: ``FastPitch.infer`` at 8 × 128 tokens, 1024 frames.
+- ``fastpitch_infer``: ``FastPitch.infer`` at 8 × 128 tokens, 1024 frames;
+
+and one of the port's own:
+
+- ``fastpitch_serve``: one request of the serving loop, raw text through the
+  front end and ``synthesize`` (FastPitch → HiFi-GAN v1, 16-token text and
+  128-frame vocoder buckets, 2048 frames at most) to audio on the host, one
+  117-token sentence at batch 1 (``--batch`` sentences at that batch).
 
 It runs one step to warm up, then traces ``--steps`` steps through
 ``utils/profiling.py::trace`` (a Chrome trace, ``trace_<pid>.json``, in
 ``--out``) and prints ``utils/profiling.py::breakdown`` of it: the card's
 busy time, the idle share, time and launches by category and by kernel, in
-ms a step. ``--batch`` overrides a case's batch (the JAX tool's AR-case
+ms a step, and the longest idle gaps, each named by the program's span over
+it (``utils/profiling.py::span``) and the host op under it. ``--batch`` overrides a case's batch (the JAX tool's AR-case
 override), ``--amp`` computes in bf16 as the CLIs' ``--amp`` does; the
 default is f32 with TF32 off. JAX's ``--unroll`` has no counterpart: the
 port's autoregressive loops are Python loops and cuDNN calls, with no scan
@@ -44,7 +52,9 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 CASES = ("diffwave_train", "hifigan_infer", "hifigan_gan", "tacotron2_train", "flowtron_train",
-         "gradtts_train", "talknet_spec_train", "fastpitch_infer")
+         "gradtts_train", "talknet_spec_train", "fastpitch_infer", "fastpitch_serve")
+SENTENCE = ("The committee recommends that the Secret Service consciously set about the task of "
+            "improving its protective research.")
 
 
 def random_init_(module, seed, device):
@@ -207,6 +217,25 @@ def build(case: str, device, batch=None, amp: bool = False):
                 return fp.infer(text, lens, max_mel_len=M)[0]
 
         return step, f"FastPitch.infer, {B} x {T} tokens, max_mel_len {M}"
+
+    if case == "fastpitch_serve":
+        from neuraltexttospeech_torch.cli.fastpitch_infer import synthesize
+        from neuraltexttospeech_torch.models.fastpitch import FastPitch, FastPitchConfig
+        from neuraltexttospeech_torch.models.hifigan import Generator, HiFiGANConfig
+        from neuraltexttospeech_torch.text.processing import TextProcessing
+
+        B = batch or 1
+        fp = random_init_(FastPitch(FastPitchConfig()).to(device), 0, device).eval()
+        with torch.no_grad():  # about 6 frames a token
+            fp.duration_predictor.fc.bias.fill_(float(np.log(7.0)))
+        gen = random_init_(Generator(HiFiGANConfig.v1()).to(device).eval(), 1, device)
+        front = TextProcessing("english_basic", ["english_cleaners_v2"], p_arpabet=0.0)
+
+        def step():
+            ids = [np.asarray(front.encode_text(SENTENCE), np.int32) for _ in range(B)]
+            return list(synthesize(fp, gen, ids, device=device, batch_size=B, dtype=dtype))
+
+        return step, f"serving loop, FastPitch -> HiFi-GAN v1, {B} sentence(s) at batch {B}"
 
     raise SystemExit(f"unknown case {case!r}; the cases are {', '.join(CASES)}")
 
