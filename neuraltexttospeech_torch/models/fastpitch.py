@@ -27,6 +27,7 @@ from torch.nn import functional as F
 from ..nn.layers import ConvNorm, ConvReLUNorm, Linear
 from ..nn.transformer import FFTransformer
 from ..ops.mas import maximum_path
+from ..utils import graphs
 from ..utils.masking import mask_from_lens
 
 __all__ = ["FastPitchConfig", "FastPitch", "FastPitchOutput", "ConvAttention",
@@ -314,7 +315,19 @@ class FastPitch(nn.Module):
         ``input_lens`` is accepted for the JAX signature and not read).
         Returns (mel_out [B, max_mel_len, n_mel], dec_lens [B], dur_pred
         [B, T_text], pitch_pred [B, n_formants, T_text]).
+
+        On a card, in inference mode and eval mode, each shape is captured
+        as a CUDA graph on its first call and replayed after that
+        (``utils/graphs.py``); the outputs are fresh tensors either way.
         """
+        return graphs.run(self, self._infer, text, pace=pace, max_mel_len=max_mel_len,
+                          speaker=speaker, dur_tgt=dur_tgt, pitch_tgt=pitch_tgt,
+                          energy_tgt=energy_tgt, max_duration=max_duration,
+                          pitch_transform=pitch_transform)
+
+    def _infer(self, text, *, pace, max_mel_len, speaker, dur_tgt, pitch_tgt, energy_tgt,
+               max_duration, pitch_transform):
+        """The eager body of :meth:`infer`."""
         c = self.config
         enc_out, enc_mask = self.encoder(text, conditioning=self._speaker_vec(speaker))
 

@@ -40,6 +40,7 @@ from ..nn.layers import Conv1d, ConvTranspose1d, promoted_conv, same_padding
 from ..nn.norms import SpectralNorm
 from ..nn.norms import weight_norm as _weight_norm
 from ..parallel.mesh import global_mean
+from ..utils import graphs
 
 __all__ = ["HiFiGANConfig", "Generator", "ResBlock1", "ResBlock2",
            "transpose_padding", "DiscriminatorP", "MultiPeriodDiscriminator",
@@ -193,6 +194,12 @@ class Generator(nn.Module):
                     _weight_norm(m)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """On a card, in inference mode and eval mode, each shape is captured
+        as a CUDA graph on its first call and replayed after that
+        (``utils/graphs.py``); the output is a fresh tensor either way."""
+        return graphs.run(self, self._forward, x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv_pre(x.transpose(1, 2))
         for i, up in enumerate(self.ups):
             x = up(F.leaky_relu(x, LRELU_SLOPE))

@@ -18,7 +18,8 @@ op lists differ between the CPU and CUDA (CUDA's runs ``sum``, ``exp``,
 losses), this gives the same arithmetic on both devices, so the CPU tests
 hold the card's semantics against JAX. With no compute dtype set (the
 default) :func:`promote` changes nothing. With tracing on
-(``utils/profiling.py``) it counts the tensors it casts, ``precision.casts``.
+(``utils/profiling.py``), or in a tally, it counts the tensors it casts,
+``precision.casts``.
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ def promote(*tensors):
     dtype = current()
     if dtype is None:
         return tensors
-    if profiling.tracing():
+    if profiling.counting():
         profiling.count("precision.casts",
                         sum(t is not None and t.dtype != dtype for t in tensors))
     return tuple(None if t is None else t.to(dtype) for t in tensors)

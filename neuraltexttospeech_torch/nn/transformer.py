@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from ..parallel.tp import copy_to_model, reduce_from_model
+from ..utils.graphs import hold
 from ..utils.masking import mask_from_lens
 from .layers import LN_EPS, ConvNorm, Embedding, LayerNorm, Linear, dropout, promoted_conv
 
@@ -173,7 +174,8 @@ class FFTransformer(nn.Module):
                 raise ValueError("seq_lens is required when embed_input=False")
             mask = mask_from_lens(seq_lens, x.shape[1])
 
-        pos = positional_embedding(x.shape[1], self.d_model, x.device).to(x.dtype)
+        # a cached table: a CUDA graph captured here holds it
+        pos = hold(positional_embedding(x.shape[1], self.d_model, x.device)).to(x.dtype)
         out = x + pos[None] * mask[..., None].to(x.dtype)
         if conditioning is not None:
             out = out + conditioning

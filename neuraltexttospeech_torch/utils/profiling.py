@@ -9,7 +9,10 @@ The program's own spans and counters: :func:`span` marks a stage where the
 work happens and :func:`count` adds to a count of the innermost open span.
 They record only while a ``torch.profiler`` profile is recording (``trace``,
 or any ``torch.profiler.profile`` block): tracing is off otherwise, and then
-a span is one flag check and a shared no-op context, a count one flag check.
+a span is one flag check and a shared no-op context, a count two flag
+checks. :func:`tally` collects a block's counts on its thread whether or
+not tracing is on, and keeps them from every span (``utils/graphs.py``
+tallies what a captured body counts, and adds it on each traced replay).
 On, a span is also a ``torch.profiler.record_function`` range, so the trace
 shows it over its kernels, and its record is kept in memory with host stamps
 on the clock of the profiler's own records (``time.time_ns``, the Unix-epoch
@@ -48,8 +51,9 @@ from torch.autograd import profiler as _autograd_profiler
 from ..parallel.mesh import ServingReplica
 from ..parallel.mesh import current as _current_mesh
 
-__all__ = ["trace", "span", "count", "tracing", "spans", "reset", "SpanRecord", "Breakdown",
-           "breakdown", "chrome_breakdown", "load_chrome_trace", "category", "CATEGORIES"]
+__all__ = ["trace", "span", "count", "tally", "tracing", "counting", "spans", "reset",
+           "SpanRecord", "Breakdown", "breakdown", "chrome_breakdown", "load_chrome_trace",
+           "category", "CATEGORIES"]
 
 
 @contextlib.contextmanager
@@ -101,15 +105,40 @@ class SpanRecord:
 
 
 _OFF = contextlib.nullcontext()
-_local = threading.local()  # each thread's stack of open spans
+_local = threading.local()  # each thread's stack of open spans, and its open tally
 _ids = itertools.count(1)
 _finished: List[SpanRecord] = []
+_tallies = 0  # tallies open in the process
+_tally_lock = threading.Lock()
 
 
 def tracing() -> bool:
     """Whether a ``torch.profiler`` profile is recording (the flag its
     ``__enter__`` sets), and so whether spans and counts record."""
     return _autograd_profiler._is_profiler_enabled
+
+
+def counting() -> bool:
+    """Whether a count records: tracing is on, or a :func:`tally` is open
+    (on some thread: :func:`count` finds which)."""
+    return _autograd_profiler._is_profiler_enabled or _tallies > 0
+
+
+@contextlib.contextmanager
+def tally():
+    """Collect the counts this thread makes in the block into the dict it
+    yields, whether or not tracing is on; they reach no span."""
+    global _tallies
+    prev = getattr(_local, "tally", None)
+    out = _local.tally = {}
+    with _tally_lock:
+        _tallies += 1
+    try:
+        yield out
+    finally:
+        with _tally_lock:
+            _tallies -= 1
+        _local.tally = prev
 
 
 def _stack() -> List[SpanRecord]:
@@ -171,7 +200,14 @@ def span(name: str, device=None):
 
 def count(name: str, n: int = 1):
     """Add ``n`` to the count ``name`` of the innermost span open on this
-    thread, with tracing on; a count outside every span is not kept."""
+    thread, with tracing on; a count outside every span is not kept. Inside
+    a :func:`tally` the count goes to the tally instead."""
+    if not (_autograd_profiler._is_profiler_enabled or _tallies):
+        return
+    tallied = getattr(_local, "tally", None)
+    if tallied is not None:
+        tallied[name] = tallied.get(name, 0) + n
+        return
     if not _autograd_profiler._is_profiler_enabled:
         return
     stack = getattr(_local, "stack", None)
