@@ -23,7 +23,7 @@ from ..reference.nets import leaf_norms
 from ..yardstick import synth, weights
 from ..yardstick.judge import kept_leaves, leaf_gaps, training_numbers, verdict
 
-__all__ = ["GanTrain", "NETS"]
+__all__ = ["GanTrain", "NETS", "Driver", "control"]
 
 NETS = ("gen", "mpd", "msd")
 
@@ -160,3 +160,27 @@ class GanTrain:
             print(f"worst leaves, {key}: {sorted(gaps.items(), key=lambda kv: -kv[1])[:3]}",
                   file=sys.stderr)
         return verdict(training_numbers(self.readings, refr), limits)
+
+
+def control(cell, seed: int, device):
+    """The control of the GAN training cells, for ``calibrate.py``: the
+    reference's first three GAN steps with TF32 operands, judged against its
+    own f32 steps. Returns ``(numbers, {"leaves": the worst leaves})``."""
+    from ..reference import load_reference
+    from ..yardstick.judge import worst_leaves
+
+    cfg, mix = cell.config, cell.mix
+    h = cfg["hifigan"]
+    ref = load_reference(cell.root, cell.cell["config"])
+    nets = ref.build(cfg, torch.device("cpu"))
+    leaves = leaves_of(nets)
+    n = int(mix["pool_batches"])
+    pool = synth.synthetic_wavs_device(n * h["batch_size"], h["segment_size"], seed ^ 0xDA7A,
+                                       device).view(n, h["batch_size"], h["segment_size"], 1)
+    batches = pool[:3].clone()
+    f32 = ref.first_steps(cfg, mix, seed, device, batches, "f32", init_weights, leaves)
+    low = ref.first_steps(cfg, mix, seed, device, batches, "tf32", init_weights, leaves)
+    return training_numbers(low, f32), {"leaves": worst_leaves(low, f32)}
+
+
+Driver = GanTrain

@@ -26,7 +26,7 @@ import torch
 from ..yardstick import traffic, weights
 from ..yardstick.judge import judge_serving
 
-__all__ = ["Serve"]
+__all__ = ["Serve", "Driver", "control"]
 
 DTYPES = {"bf16": torch.bfloat16, "f32": None}
 
@@ -37,7 +37,8 @@ def init_weights(cfg: dict, leaves, seed: int, device, ref, texts) -> Dict[str, 
     its output weights scaled and its bias set so that, over the tokens of
     ``texts`` (the traffic's fixed calibration sentences), the reference's
     log-durations have the mean ``init.duration_bias`` and the standard
-    deviation ``init.duration_log_std``. So every seed serves the same
+    deviation ``init.duration_log_std`` (a traffic file's
+    ``duration_log_std`` stands in its place). So every seed serves the same
     lengths on the whole, and only which token gets which is drawn."""
     out = weights.make(leaves, seed, device, cfg["init"]["rule"])
     mean, std = ref.log_duration_stats(cfg, out, device, texts)
@@ -81,6 +82,9 @@ class Reservoir:
 class Serve:
     def __init__(self, cell: dict, config: dict, mix: dict, device: torch.device, seed: int,
                  root):
+        if "duration_log_std" in mix:  # the traffic sets the spread of the served durations
+            config = {**config, "init": {**config["init"],
+                                         "duration_log_std": mix["duration_log_std"]}}
         self.cell, self.cfg, self.mix = cell, config, mix
         self.device, self.seed, self.root = device, int(seed), root
         self.dtype = DTYPES[config["precision"]]
@@ -327,3 +331,37 @@ class _Profiler:
         from ..yardstick.breakdown import read
 
         return read(self.prof, self.span)
+
+
+def control(cell, seed: int, device):
+    """The control of the serving cells, for ``calibrate.py``: the reference
+    served in the program's place one precision below the configuration's,
+    on the requests the seed's run would check first (``check_requests`` of
+    them), judged against the f32 reference. It serves each utterance alone:
+    its text padded to its own ``text_bucket`` multiple, its mel to its own
+    ``vocoder_bucket`` multiple. Returns ``(numbers, {})``."""
+    from ..reference.nets import Arith, round_durations
+    from ..yardstick.judge import reference_nets, serving_numbers
+
+    serve = Serve(cell.cell, cell.config, cell.mix, device, seed, cell.root)
+    cfg, mix, ref = serve.cfg, serve.mix, serve.ref
+    nets = reference_nets(ref, cfg, seed, device, serve.init_weights)
+    low = Arith("fp8" if cfg["precision"] == "bf16" else "tf32")
+    stream = traffic.Sentences(mix, seed, cell.root)
+    bucket, max_len = int(mix["text_bucket"]), int(mix["max_mel_len"])
+    utterances = []
+    for k in range(int(mix["check_requests"])):
+        for text in stream.request(k):
+            ids = np.asarray(ref.encode(cfg, text), np.int64)
+            width = traffic.round_up(len(ids), bucket)
+            enc, dur = ref.durations(nets, low, torch.as_tensor(ids, device=device), width)
+            mel = ref.decode(nets, low, enc, round_durations(dur), max_len)
+            frames = min(traffic.round_up(len(mel), int(mix["vocoder_bucket"])), max_len)
+            utterances.append({"text": text, "ids": ids, "width": width,
+                               "vocoder_frames": frames, "durations": dur.cpu().numpy(),
+                               "mel": mel.cpu().numpy(),
+                               "audio": ref.vocode(nets, low, mel, frames).cpu().numpy()})
+    return serving_numbers(ref, nets, cfg, mix, utterances, device), {}
+
+
+Driver = Serve

@@ -4,7 +4,9 @@ comparison that decides ``correct``.
 Everything a cell is made of is found by name: the cell in
 ``BENCHMARK.json``; its configuration in the file that names
 (``configs/<config>.json``); its traffic in ``traffic/<traffic>.json``,
-whose ``driver`` names the loop in ``drivers/``; its limits in
+whose ``driver`` names the loop, ``drivers/<driver>.py`` (its class is the
+module's ``Driver``, and ``calibrate.py``'s control its ``control``); its
+limits in
 ``limits/<cell>.json``; its FLOP and byte counts in ``counts/<config>.py``;
 its reference in ``reference/<config>.py``; and each per-layer metric's
 reader in ``metrics/<metric>.py``. A new cell is a ``workloads`` entry and
@@ -22,12 +24,9 @@ from types import SimpleNamespace
 
 import torch
 
-from .drivers.gan_train import GanTrain
-from .drivers.serve import Serve
 from .reference import load_by_path
 
 ROOT = pathlib.Path(__file__).resolve().parent
-DRIVERS = {"serve": Serve, "gan_train": GanTrain}
 FORBIDDEN = ("jax", "jaxlib", "flax", "neuraltexttospeech_tpu")
 
 __all__ = ["Cell", "run", "forbidden_modules", "select_metrics"]
@@ -81,7 +80,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device: torch.dev
     start on ``time.time()``'s clock; the overrides shrink a cell for the
     rehearsals on the CPU."""
     c = Cell(workload, bench_file, config_overrides, mix_overrides)
-    driver = DRIVERS[c.mix["driver"]](c.cell, c.config, c.mix, device, seed, c.root)
+    loop = load_by_path(c.root / "drivers" / f"{c.mix['driver']}.py", "port_bench.drivers").Driver
+    driver = loop(c.cell, c.config, c.mix, device, seed, c.root)
     driver.setup()
     if device.type == "cuda":
         torch.cuda.synchronize(device)

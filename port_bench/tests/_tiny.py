@@ -23,6 +23,9 @@ def overrides(cell: str):
     if "serve" in cell:
         return ({"fastpitch": FASTPITCH, "vocoder": GENERATOR},
                 {"max_mel_len": 256, "check_requests": 2, "trace_units": 2})
+    if cell == "fastpitch-lj.train":
+        return ({"fastpitch": FASTPITCH},
+                {"sentences_per_request": 4, "pool_batches": 5, "trace_units": 2})
     return ({"hifigan": {**GENERATOR, "batch_size": 2, "segment_size": 1024}},
             {"pool_batches": 4, "trace_units": 1})
 

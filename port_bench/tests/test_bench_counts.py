@@ -81,3 +81,25 @@ def test_gan_step_flops_match_the_flop_counter():
         g, d = gan_losses(a, gen, mpd, msd, y, h)
         (g + d).backward()
     assert fc.get_total_flops() == _counts("hifigan-v1").step_flops(cfg, 2, 1024)
+
+
+def test_train_flops_match_the_flop_counter():
+    """A FastPitch training micro-step of the reference (forward, losses and
+    backward) at a small width and padded shapes."""
+    cfg = _config("fastpitch-lj")
+    cfg["fastpitch"].update(FASTPITCH)
+    mix = json.loads((BENCH / "traffic" / "fastpitch-train.json").read_text())
+    ref = load_by_path(BENCH / "reference" / "fastpitch-lj.train.py", "port_bench.reference")
+    net = _seeded(FastPitchRef(cfg["fastpitch"]))
+    gen = torch.Generator().manual_seed(1)
+    in_lens, mel_lens = torch.tensor([9, 6]), torch.tensor([40, 27])
+    text = torch.randint(1, 60, (2, 16), generator=gen) * (torch.arange(16) < in_lens[:, None])
+    frames = (torch.arange(48) < mel_lens[:, None]).float()
+    mel = torch.randn(2, 48, 80, generator=gen) * frames[..., None]
+    batch = {"text": text, "input_lens": in_lens, "mel": mel, "mel_lens": mel_lens,
+             "pitch": torch.randn(2, 1, 48, generator=gen) * frames[:, None],
+             "energy": mel.norm(dim=2)}
+    with FlopCounterMode(display=False) as fc:
+        terms, *_ = ref.micro_step(net, Arith("f32"), batch, mix["loss"], lambda x, p: x, ref.mas)
+        terms["loss"].backward()
+    assert fc.get_total_flops() == _counts("fastpitch-lj").train_flops(cfg, 2, 16, 48)

@@ -13,7 +13,13 @@ CASES = [("fastpitch-lj.serve-doc", "altered_token"), ("fastpitch-lj.serve-doc",
          ("fastpitch-lj.serve-single", "altered_token"),
          ("fastpitch-lj.serve-single", "altered_audio"),
          ("hifigan-v1.train", "state_unchanged"), ("hifigan-v1.train", "small_leaves_unchanged"),
-         ("hifigan-v1.train", "half_batch_step")]
+         ("hifigan-v1.train", "half_batch_step"),
+         ("fastpitch-lj.train", "lamb_state_unchanged"),
+         ("fastpitch-lj.train", "lamb_without_trust_ratio"),
+         ("fastpitch-lj.train", "mas_shifted"), ("fastpitch-lj.train", "dropout_skipped"),
+         ("fastpitch-lj.train", "half_rows_loss"),
+         ("fastpitch-lj.train", "accumulation_drops_half"),
+         ("fastpitch-lj.train", "half_batch_train_step")]
 
 
 @pytest.mark.parametrize("cell,fault", CASES)

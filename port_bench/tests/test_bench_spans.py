@@ -12,10 +12,12 @@ HOST = {"fastpitch-lj.serve-doc": set(),
         "fastpitch-lj.serve-single": {"encode_ms.single", "issue_ms.single",
                                       "casts_per_request.single"},
         "hifigan-v1.train": {"gan_step_ms.train", "gan_backward_ms.train", "gan_optim_ms.train",
-                             "weight_norms_per_step.train"}}
+                             "weight_norms_per_step.train"},
+        "fastpitch-lj.train": set()}
 DEVICE = {"fastpitch-lj.serve-doc": {"acoustic_ms.batch", "vocoder_span_ms.batch",
                                      "to_host_ms.batch"},
-          "fastpitch-lj.serve-single": set(), "hifigan-v1.train": set()}
+          "fastpitch-lj.serve-single": set(), "hifigan-v1.train": set(),
+          "fastpitch-lj.train": set()}
 SPAN_METRICS = set().union(*HOST.values(), *DEVICE.values())
 
 

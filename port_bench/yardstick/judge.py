@@ -24,6 +24,18 @@ steps, the last two by the worst leaf against the reference's norm of that
 leaf or the median leaf's, whichever is larger. Leaves whose reference
 gradient is under a thousandth of the median leaf's move by rounding alone
 and are left out of both.
+
+FastPitch training (:func:`fastpitch_training_numbers`) compares ``mas``,
+the compared micro-steps' utterances whose MAS path differs from the plain
+MAS run on the program's own MAS input (exact: 0); ``loss``, each
+micro-step's total loss, and ``loss1.ctc``, the first micro-step's CTC
+term; ``grad``, the first update's gradient (the micro-steps' mean after
+the clip) by the worst leaf and ``grad.median`` by the median leaf; and
+``update`` after the compared updates. LAMB scales each leaf's update to
+its parameter's norm, and the gradient of half of the rows has about the
+norm of all of them, so the norms miss a wrong gradient: ``grad.diff`` and
+``update.diff`` compare the median leaf's norm of the difference, against
+the larger of the reference's norm of that leaf and the median leaf's.
 """
 
 from __future__ import annotations
@@ -36,7 +48,8 @@ import torch
 from ..reference.nets import Arith, round_durations
 from . import weights
 
-__all__ = ["serving_numbers", "judge_serving", "training_numbers", "verdict"]
+__all__ = ["serving_numbers", "judge_serving", "training_numbers",
+           "fastpitch_training_numbers", "worst_leaves", "verdict"]
 
 
 def _finite(v: float) -> float:
@@ -138,6 +151,62 @@ def training_numbers(prog: dict, refr: dict) -> Dict[str, float]:
     return {"loss1": max(gaps[0]), "loss": max(max(g) for g in gaps),
             "grad": _gaps(prog["grad"], refr["grad"], keep),
             "update": _gaps(prog["update"], refr["update"], keep)}
+
+
+def fastpitch_training_numbers(prog: dict, refr: dict, plain_mas, terms) -> Dict[str, float]:
+    """``prog`` holds per micro-step the program's MAS input and path
+    (``mas_in``, ``paths``, [B, T_mel, T_text]); both hold ``losses``, per
+    micro-step the loss terms named by ``terms``, the total first, the
+    first update's gradient and the change after the last update by leaf
+    (``grad_at``, ``update_at``) and their norms (``grad``, ``update``), and
+    ``refr`` the lengths, ``lens``; ``plain_mas(log_attn, in_lens,
+    out_lens)`` is the reference's MAS."""
+    wrong = 0.0
+    for mas_in, path, (in_lens, out_lens) in zip(prog["mas_in"], prog["paths"], refr["lens"]):
+        plain = plain_mas(mas_in.to(in_lens.device), in_lens, out_lens)
+        wrong += float((plain != path.to(plain.device)).flatten(1).any(1).sum())
+    keep = kept_leaves(refr)
+    grad = leaf_gaps(prog["grad"], refr["grad"], keep)
+    gdiff = leaf_diffs(prog["grad_at"], refr["grad_at"], refr["grad"], keep)
+    udiff = leaf_diffs(prog["update_at"], refr["update_at"], refr["update"], keep)
+    ctc = terms.index("attn_loss")
+    p1, r1 = prog["losses"][0][ctc], refr["losses"][0][ctc]
+    return {"mas": wrong,
+            "loss": max(_finite(abs(p[0] - r[0]) / max(abs(r[0]), 1e-30))
+                        for p, r in zip(prog["losses"], refr["losses"])),
+            "loss1.ctc": _finite(abs(p1 - r1) / max(abs(r1), 1e-30)),
+            "grad": max(grad.values(), default=0.0),
+            "grad.median": float(np.median(list(grad.values()))) if grad else 0.0,
+            "grad.diff": float(np.median(list(gdiff.values()))) if gdiff else 0.0,
+            "update": _gaps(prog["update"], refr["update"], keep),
+            "update.diff": float(np.median(list(udiff.values()))) if udiff else 0.0}
+
+
+def leaf_diffs(prog: Dict[str, torch.Tensor], refr: Dict[str, torch.Tensor],
+               refn: Dict[str, float], keep) -> Dict[str, float]:
+    """Each kept leaf's norm of the difference of the program's tensor and
+    the reference's, against the larger of the reference's norm of that leaf
+    and the median kept leaf's."""
+    med = float(np.median([refn[k] for k in keep])) if keep else 0.0
+    if set(prog) != set(refr):
+        return {"(leaves differ)": float("inf")}
+    out = {}
+    for k in keep:
+        r = refr[k].double()
+        d = torch.linalg.vector_norm(prog[k].to(r.device).double() - r)
+        out[k] = _finite(float(d) / max(refn[k], med, 1e-30))
+    return out
+
+
+def worst_leaves(prog: dict, refr: dict, n: int = 3) -> dict:
+    """The leaves left out by :func:`kept_leaves` and the ``n`` widest gaps
+    of ``grad`` and ``update``: where a failing number comes from."""
+    keep = kept_leaves(refr)
+    out = {"left_out": sorted(set(refr["grad"]) - set(keep))}
+    for key in ("grad", "update"):
+        gaps = leaf_gaps(prog[key], refr[key], keep)
+        out[key] = sorted(gaps.items(), key=lambda kv: -kv[1])[:n]
+    return out
 
 
 def verdict(numbers: Dict[str, float], limits: Dict[str, float]):
