@@ -11,9 +11,9 @@ cell's own load, the check) and prints the compared numbers. For each of
 the program's place one precision below the configuration's (bf16 → fp8
 e4m3 products, f32 → TF32), judged as the program is; a cell's control is
 its driver's ``control(cell, seed, device)``, beside the driver's class in
-``drivers/<driver>.py``. Each of ``--faults`` (``faults.py``) is planted
-under a run of each control seed. One JSON object a line; the benchmark's
-own runs never run this.
+``drivers/<driver>.py``. Each of ``--faults`` (``planted/<name>.py``,
+found by ``faults.find``) is planted under a run of each control seed. One
+JSON object a line; the benchmark's own runs never run this.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from port_bench.faults import FAULTS
+    from port_bench.faults import find
     from port_bench.harness import Cell, run
 
     device = torch.device("cuda")
@@ -59,6 +59,7 @@ def main(argv=None) -> int:
     cell = Cell(args.workload, bench, mix_overrides=mix)
     seeds = [int(s) for s in args.seeds.split(",") if s]
     controls = [int(s) for s in args.control_seeds.split(",") if s]
+    faults = {f: find(f, cell.root) for f in args.faults.split(",") if f}
 
     def emit(kind, seed, numbers, **extra):
         print(json.dumps({"kind": kind, "seed": seed, "numbers": numbers, **extra}), flush=True)
@@ -74,10 +75,10 @@ def main(argv=None) -> int:
         t = time.time()
         numbers, extra = control(cell, seed, device)
         emit("control", seed, numbers, seconds=time.time() - t, **extra)
-    for fault in [f for f in args.faults.split(",") if f]:
+    for fault, planted in faults.items():
         for seed in controls:
             t = time.time()
-            with FAULTS[fault]():
+            with planted():
                 _, checks = run(args.workload, seed, args.seconds, False, device, bench, t,
                                 mix_overrides=mix)
             emit(f"fault:{fault}", seed, {k: v for k, v, _ in checks}, seconds=time.time() - t)

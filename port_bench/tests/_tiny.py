@@ -1,46 +1,59 @@
-"""Small shapes for rehearsing the benchmark on the CPU: the configurations'
-widths cut so a run takes seconds, the traffic cut to match."""
+"""Small shapes for rehearsing the benchmark on the CPU, one file a cell:
+``rehearsal/<cell>.json`` beside the cell's other files, found by the
+cell's name. It holds
+
+- ``config``: overrides of the configuration's file (a nested group's keys
+  merge into the group), its widths cut so a run takes seconds;
+- ``mix``: overrides of the traffic's file, cut to match;
+- ``host_metrics``: the metrics of the program's spans and counters that the
+  traced rehearsal reads as positive numbers, ``whole_metrics`` those of them
+  that read whole numbers, and ``inner_metrics`` a span's metric with the
+  metrics of the spans inside it, whose sum it exceeds (both may be absent);
+- ``device_metrics``: the metrics of the program's spans timed on the
+  device, which a run on the CPU leaves out;
+- ``faults``: the faults (``planted/<name>.py``) that the cell's rehearsal
+  has to find not ``correct``."""
 
 from __future__ import annotations
 
+import json
 import pathlib
 import time
 
 import torch
 
 REPO = pathlib.Path(__file__).resolve().parents[2]
-
-FASTPITCH = {"symbols_embedding_dim": 32, "in_fft_n_layers": 1, "out_fft_n_layers": 1,
-             "in_fft_d_head": 8, "out_fft_d_head": 8, "in_fft_conv1d_filter_size": 64,
-             "out_fft_conv1d_filter_size": 64, "dur_predictor_filter_size": 16,
-             "pitch_predictor_filter_size": 16, "energy_predictor_filter_size": 16,
-             "n_attn_channels": 8}
-GENERATOR = {"upsample_initial_channel": 16}
+BENCH = REPO / "BENCHMARK.json"
 
 
-def overrides(cell: str):
+def root(bench=BENCH) -> pathlib.Path:
+    """The benchmark's directory beside ``bench``."""
+    return pathlib.Path(bench).parent / "port_bench"
+
+
+def rehearsal_file(cell: str, bench=BENCH) -> pathlib.Path:
+    return root(bench) / "rehearsal" / f"{cell}.json"
+
+
+def rehearsal(cell: str, bench=BENCH) -> dict:
+    return json.loads(rehearsal_file(cell, bench).read_text())
+
+
+def overrides(cell: str, bench=BENCH):
     """``(config overrides, mix overrides)`` of a cell's CPU rehearsal."""
-    if "serve" in cell:
-        return ({"fastpitch": FASTPITCH, "vocoder": GENERATOR},
-                {"max_mel_len": 256, "check_requests": 2, "trace_units": 2})
-    if cell == "fastpitch-lj.train":
-        return ({"fastpitch": FASTPITCH},
-                {"sentences_per_request": 4, "pool_batches": 5, "trace_units": 2})
-    return ({"hifigan": {**GENERATOR, "batch_size": 2, "segment_size": 1024}},
-            {"pool_batches": 4, "trace_units": 1})
+    r = rehearsal(cell, bench)
+    return r["config"], r["mix"]
 
 
 def rehearse(cell: str, trace: bool = False, seconds: float = 0.5, seed: int = 2 ** 31 + 77,
-             bench=REPO / "BENCHMARK.json"):
+             bench=BENCH):
     from port_bench.harness import run
 
     torch.manual_seed(0)
-    cfg, mix = overrides(cell)
+    cfg, mix = overrides(cell, bench)
     return run(cell, seed, seconds, trace, torch.device("cpu"), pathlib.Path(bench),
                time.time(), cfg, mix)
 
 
-def cells():
-    import json
-
-    return [w["name"] for w in json.loads((REPO / "BENCHMARK.json").read_text())["workloads"]]
+def cells(bench=BENCH):
+    return [w["name"] for w in json.loads(pathlib.Path(bench).read_text())["workloads"]]

@@ -13,12 +13,16 @@ import torch
 from port_bench.calibrate import load_control
 from port_bench.harness import Cell
 
-from ._tiny import REPO, cells, overrides
+from ._tiny import BENCH, cells, overrides
+
+
+def control_fails(cell, bench=BENCH):
+    cfg, mix = overrides(cell, bench)
+    c = Cell(cell, bench, cfg, mix)
+    numbers, _ = load_control(c)(c, 2 ** 33 + 5, torch.device("cpu"))
+    assert any(numbers[k] > c.limits[k] for k in numbers), json.dumps(numbers)
 
 
 @pytest.mark.parametrize("cell", cells())
 def test_the_control_fails_a_limit(cell):
-    cfg, mix = overrides(cell)
-    c = Cell(cell, REPO / "BENCHMARK.json", cfg, mix)
-    numbers, _ = load_control(c)(c, 2 ** 33 + 5, torch.device("cpu"))
-    assert any(numbers[k] > c.limits[k] for k in numbers), json.dumps(numbers)
+    control_fails(cell)

@@ -13,9 +13,11 @@ from port_bench.reference import load_by_path
 from port_bench.reference.nets import Arith, FastPitchRef, GeneratorRef, MPDRef, MSDRef, gan_losses
 from port_bench.yardstick import weights
 
-from ._tiny import FASTPITCH, GENERATOR
+from ._tiny import overrides
 
 BENCH = pathlib.Path(__file__).resolve().parents[1]
+TINY = overrides("fastpitch-lj.serve-doc")[0]
+FASTPITCH, GENERATOR = TINY["fastpitch"], TINY["vocoder"]
 
 
 def _counts(name):

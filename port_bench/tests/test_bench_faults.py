@@ -1,29 +1,25 @@
 """Runs with the timed path broken underneath come out not correct: every
-fault of ``faults.py`` that a cell can have, planted in the program, at a
-small size on the CPU."""
+fault that a cell can have (its rehearsal file's ``faults``), planted in
+the program at a small size on the CPU, found by name as ``calibrate.py``
+finds it (``faults.find``)."""
 
 import pytest
 
-from port_bench.faults import FAULTS
+from port_bench.faults import find
 
-from ._tiny import rehearse
+from ._tiny import BENCH, cells, rehearsal, rehearsal_file, rehearse, root
 
-CASES = [("fastpitch-lj.serve-doc", "altered_token"), ("fastpitch-lj.serve-doc", "altered_audio"),
-         ("fastpitch-lj.serve-doc", "half_batch_vocoder"),
-         ("fastpitch-lj.serve-single", "altered_token"),
-         ("fastpitch-lj.serve-single", "altered_audio"),
-         ("hifigan-v1.train", "state_unchanged"), ("hifigan-v1.train", "small_leaves_unchanged"),
-         ("hifigan-v1.train", "half_batch_step"),
-         ("fastpitch-lj.train", "lamb_state_unchanged"),
-         ("fastpitch-lj.train", "lamb_without_trust_ratio"),
-         ("fastpitch-lj.train", "mas_shifted"), ("fastpitch-lj.train", "dropout_skipped"),
-         ("fastpitch-lj.train", "half_rows_loss"),
-         ("fastpitch-lj.train", "accumulation_drops_half"),
-         ("fastpitch-lj.train", "half_batch_train_step")]
+# a cell without a rehearsal file fails test_every_cell_has_a_rehearsal_file, not collection
+CASES = [(cell, fault) for cell in cells() if rehearsal_file(cell).is_file()
+         for fault in rehearsal(cell)["faults"]]
+
+
+def fault_is_not_correct(cell, fault, bench=BENCH):
+    with find(fault, root(bench))():
+        result, checks = rehearse(cell, bench=bench)
+    assert result["correct"] is False, checks
 
 
 @pytest.mark.parametrize("cell,fault", CASES)
 def test_a_planted_fault_is_not_correct(cell, fault):
-    with FAULTS[fault]():
-        result, checks = rehearse(cell)
-    assert result["correct"] is False, checks
+    fault_is_not_correct(cell, fault)
