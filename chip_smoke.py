@@ -2861,6 +2861,9 @@ def phase_tacotron2_timing(torch, device, card):
             f"{B} x {T_TEXT} tokens x {T_MEL} frames", card, B * T_MEL)
         log(f"  host ({mode}): " + host_summary())
         del trainer
+        # as the Flowtron phase does: the serving below captures CUDA graphs, and a
+        # capture cannot hand the training steps' cached blocks back to the card
+        torch.cuda.empty_cache()
 
     torch.manual_seed(1)
     weights = random_init_(Tacotron2(Tacotron2Config()).to(device), 72, device).state_dict()

@@ -15,7 +15,16 @@ or plain grouped ``conv1d`` (``fast_grouped_convs`` picks, see
 stride it is asymmetric, so every conv pads with ``F.pad`` first.
 
 Modules take and return ``[B, T, C]`` like the JAX ones; inside, activations
-stay ``[B, C, T]`` (or the gouter layout) so no conv pays a transpose.
+are ``[B, C, T]`` (or the gouter layout). Which layout they lie in follows
+the convs (``nn/layers.py``): the generator starts from the ``[B, C, T]``
+view of its contiguous mel, so in bf16 on a card every one of its convs,
+the transposed ones too, runs channels-last (cuDNN's bf16 NHWC engines, no
+transpose) and its activations stay channels-last through the leaky ReLUs,
+residual adds and block means; in f32 (training, TF32 off: cuDNN's NCHW
+engines) and on the CPU they are contiguous ``[B, C, T]`` after the first
+conv. The discriminators' convs run on contiguous ``[B, C, T]``, but for
+the MPD's first in bf16 on a card: its one input channel makes the two
+layouts one, and it runs channels-last.
 Feature maps are returned in whatever layout the layer produced (the MSD's
 folded layers in ``[g, B, Q, Po*co]``, the MPD's as ``[B*period, C, T/period]``):
 :func:`feature_loss` does not depend on the order of elements.

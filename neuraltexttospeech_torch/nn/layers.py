@@ -1,9 +1,9 @@
 """Shared micro-layers (counterpart of ``neuraltexttospeech_tpu/nn/layers.py``).
 
 Activations are ``[batch, time, channels]`` at module boundaries, as in the
-JAX package; each conv transposes to PyTorch's ``[batch, channels, time]``
-inside. LayerNorm epsilon is 1e-3 (the TF default the reference uses), not
-PyTorch's 1e-5.
+JAX package; each conv takes the ``[batch, channels, time]`` view of them
+that ``.transpose(1, 2)`` gives, with no copy. LayerNorm epsilon is 1e-3 (the
+TF default the reference uses), not PyTorch's 1e-5.
 
 Dropout is explicit, as flax's ``deterministic`` flag is: a module drops
 only when its call is given a ``torch.Generator`` (the trainer's per-step
@@ -22,6 +22,23 @@ parameters and state-dict keys) computing in the compute dtype of
 Embedding cast their input and parameters to it, the norms normalise in f32
 and cast their output. Without a compute dtype they are PyTorch's modules
 unchanged.
+
+Which layout a 1-D conv runs in. cuDNN's bf16 convolutions on the card run
+channels-last (NHWC) engines. A :class:`Conv1d` or :class:`ConvTranspose1d`
+that computes in bf16 on a card, ungrouped, whose input ``[B, C, T]`` lies
+channels-last in memory (stride 1 on C and C on T, as ``.transpose(1, 2)``
+of a contiguous ``[B, T, C]`` gives) runs as a channels-last 2-D conv on a
+``[B, C, 1, T]`` view (``[B, C, T, 1]`` at batch 1: :func:`nhwc_conv1d`)
+and returns a channels-last ``[B, C, T]``: no layout pass on the input, the
+output or the filter, whose bf16 cast lays it out. So a conv between
+``[B, T, C]`` activations (:class:`ConvNorm`) takes and returns contiguous
+``[B, T, C]``, and a chain of convs and elementwise ops that starts from
+such a view (the HiFi-GAN generator) stays channels-last. Every other conv
+(f32, TF32, the CPU, grouped, an input contiguous in ``[B, C, T]``) runs
+PyTorch's 1-D conv as it is (:func:`promoted_conv`), where PyTorch copies
+the input into ``[B, C, T]`` and cuDNN transposes in bf16 around the call.
+With tracing on, or in a tally, each bf16 conv on a card counts
+``conv.nhwc`` or ``conv.nchw`` by the layout it ran in.
 """
 
 from __future__ import annotations
@@ -34,11 +51,13 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..parallel.mesh import collective_mesh, global_draw
+from ..utils import profiling
 from .precision import current, promote
 
 __all__ = ["Conv1d", "ConvTranspose1d", "Conv2d", "ConvTranspose2d", "Linear", "Embedding",
            "LayerNorm", "GroupNorm", "BatchNorm", "ConvNorm",
-           "ConvReLUNorm", "LN_EPS", "same_padding", "dropout", "promoted_conv", "softmax"]
+           "ConvReLUNorm", "LN_EPS", "same_padding", "dropout", "promoted_conv", "softmax",
+           "nhwc_route", "nhwc_conv1d"]
 
 LN_EPS = 1e-3
 
@@ -88,6 +107,7 @@ def promoted_conv(conv, x: torch.Tensor, weight: torch.Tensor, bias, *args, **kw
     rounding, in bf16, as PyTorch adds it after a cuDNN convolution and as
     flax's ``Conv`` adds it (``y += bias``). Its gradients are rounded to
     bf16 by the casts' backward, as a bf16 conv's are."""
+    _count_layout(x, "conv.nchw")
     x, weight, bias = promote(x, weight, bias)
     if x.dtype != torch.bfloat16 or x.is_cuda:
         return conv(x, weight, bias, *args, **kwargs)
@@ -95,17 +115,84 @@ def promoted_conv(conv, x: torch.Tensor, weight: torch.Tensor, bias, *args, **kw
     return y if bias is None else y + bias.to(y.dtype).reshape((-1,) + (1,) * (y.dim() - 2))
 
 
+def _count_layout(x: torch.Tensor, name: str):
+    if profiling.counting() and x.is_cuda and current() == torch.bfloat16:
+        profiling.count(name)
+
+
+def nhwc_route(x: torch.Tensor, groups: int) -> bool:
+    """Whether a 1-D conv of ``x`` runs channels-last (:func:`nhwc_conv1d`):
+    it computes in bf16 on a card, it is ungrouped, and ``x`` ``[B, C, T]``
+    lies channels-last, each step's channels next to each other and the
+    steps C apart (the batch stride is free; a size-1 axis has any stride)."""
+    return (current() == torch.bfloat16 and x.is_cuda and groups == 1 and x.dim() == 3
+            and (x.shape[1] == 1 or x.stride(1) == 1)
+            and (x.shape[2] == 1 or x.stride(2) == x.shape[1]))
+
+
+def nhwc_conv1d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                stride: int = 1, padding=0, dilation: int = 1, *,
+                output_padding: Optional[int] = None) -> torch.Tensor:
+    """An ungrouped 1-D conv of ``x`` ``[B, C, T]`` (a transposed one where
+    ``output_padding`` is given), in the compute dtype, as a 2-D conv of a
+    channels-last view with time on one spatial axis: ``[B, C, 1, T]`` (W),
+    or ``[B, C, T, 1]`` (H) at batch 1, by the filter viewed ``[C_out, C, 1,
+    K]`` or ``[C_out, C, K, 1]`` (the transposed conv's ``[C, C_out, ...]``)
+    and laid out channels-last by its cast. Both views share one memory
+    order. Returns ``[B, C_out, T_out]`` in the channels-last order of the
+    2-D output; the 2-D conv copies an input that is not channels-last.
+
+    Time goes on H at batch 1 because cuDNN's heuristics (9.2, H100) pick a
+    direct kernel 30–300× slower for some batch-1 lengths with time on W
+    (the v1 generator's dilated 256-channel convs at 640 frames: 10–15 ms
+    against 0.04–0.05 ms on H); on H no such pick was seen at batch 1, and
+    from batch 2 on W is the faster of the two and was never mis-picked."""
+    _count_layout(x, "conv.nhwc")
+    unit = 3 if x.shape[0] == 1 else 2  # the 4-D view's size-1 axis: W (time on H) or H
+
+    def pair(v, other):  # a 1-D parameter on the time axis, ``other`` on the unit one
+        return (v, other) if unit == 3 else (other, v)
+
+    x, bias = promote(x, bias)
+    (w,) = promote(weight.unsqueeze(unit), memory_format=torch.channels_last)
+    w = w.contiguous(memory_format=torch.channels_last)  # no copy after a cast
+    # x's memory as [B, H, W, C] viewed NCHW: the unit axis's stride is C, so
+    # PyTorch reads the view as channels-last whatever the filter's strides
+    x = x.transpose(1, 2).unsqueeze(unit - 1).permute(0, 3, 1, 2)
+    pad = padding if isinstance(padding, str) else pair(padding, 0)
+    if output_padding is None:
+        y = F.conv2d(x, w, bias, pair(stride, 1), pad, pair(dilation, 1))
+    else:
+        y = F.conv_transpose2d(x, w, bias, pair(stride, 1), pad, pair(output_padding, 0), 1,
+                               pair(dilation, 1))
+    return y.squeeze(unit)
+
+
 class Conv1d(nn.Conv1d):
-    """``nn.Conv1d`` in the compute dtype (flax ``Conv(dtype=)``)."""
+    """``nn.Conv1d`` in the compute dtype (flax ``Conv(dtype=)``), channels-last
+    where :func:`nhwc_route` says so."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return promoted_conv(self._conv_forward, x, self.weight, self.bias)
+        return self.convolve(x, self.bias)
+
+    def convolve(self, x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+        """The conv of ``x`` [B, C, T] with ``bias`` in place of the module's
+        (None: no bias, as a tensor-parallel slice adds its own after the sum)."""
+        weight = self.weight
+        if self.padding_mode == "zeros" and nhwc_route(x, self.groups):
+            padding = self.padding if isinstance(self.padding, str) else self.padding[0]
+            return nhwc_conv1d(x, weight, bias, self.stride[0], padding, self.dilation[0])
+        return promoted_conv(self._conv_forward, x, weight, bias)
 
 
 class ConvTranspose1d(nn.ConvTranspose1d):
-    """``nn.ConvTranspose1d`` in the compute dtype (no ``output_size``)."""
+    """``nn.ConvTranspose1d`` in the compute dtype (no ``output_size``),
+    channels-last where :func:`nhwc_route` says so."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if nhwc_route(x, self.groups):
+            return nhwc_conv1d(x, self.weight, self.bias, self.stride[0], self.padding[0],
+                               self.dilation[0], output_padding=self.output_padding[0])
         return promoted_conv(F.conv_transpose1d, x, self.weight, self.bias, self.stride,
                              self.padding, self.output_padding, self.groups, self.dilation)
 
@@ -220,7 +307,9 @@ class BatchNorm(nn.Module):
 
 
 class ConvNorm(Conv1d):
-    """1-D conv with SAME padding over ``[B, T, C]`` activations."""
+    """1-D conv with SAME padding over ``[B, T, C]`` activations; on the
+    channels-last route (:func:`nhwc_route`) a contiguous ``[B, T, C]`` in
+    gives a contiguous ``[B, T, C]`` out."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 1,
                  dilation: int = 1, bias: bool = True):

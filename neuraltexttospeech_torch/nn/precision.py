@@ -54,13 +54,15 @@ def current() -> Optional[torch.dtype]:
     return getattr(_state, "dtype", None)
 
 
-def promote(*tensors):
+def promote(*tensors, memory_format: torch.memory_format = torch.preserve_format):
     """flax ``promote_dtype``: each tensor (None passes through) cast to the
-    compute dtype, or returned as it is when none is set."""
+    compute dtype, laid out in ``memory_format`` by the same copy, or
+    returned as it is when none is set."""
     dtype = current()
     if dtype is None:
         return tensors
     if profiling.counting():
         profiling.count("precision.casts",
                         sum(t is not None and t.dtype != dtype for t in tensors))
-    return tuple(None if t is None else t.to(dtype) for t in tensors)
+    return tuple(None if t is None else t.to(dtype, memory_format=memory_format)
+                 for t in tensors)

@@ -30,7 +30,7 @@ from torch import nn
 from ..parallel.tp import copy_to_model, reduce_from_model
 from ..utils.graphs import hold
 from ..utils.masking import mask_from_lens
-from .layers import LN_EPS, ConvNorm, Embedding, LayerNorm, Linear, dropout, promoted_conv
+from .layers import LN_EPS, ConvNorm, Embedding, LayerNorm, Linear, dropout
 
 __all__ = [
     "positional_embedding",
@@ -119,7 +119,7 @@ class PositionwiseConvFF(nn.Module):
             y = self.conv2(torch.relu(self.conv1(x)))
         else:
             h = torch.relu(self.conv1(copy_to_model(x, self.tp))).transpose(1, 2)
-            y = promoted_conv(self.conv2._conv_forward, h, self.conv2.weight, None)
+            y = self.conv2.convolve(h, None)
             y = reduce_from_model(y, self.tp)
             y = (y + self.conv2.bias.to(y.dtype)[:, None]).transpose(1, 2)
         return self.layer_norm(x + dropout(y, self.p_dropout, generator))
