@@ -3,7 +3,8 @@
 Port of ``fastpitch/inference.py``: reads lines of text, serves them in
 length-sorted batches padded to 16-token buckets, rounds each batch's
 decoded length up to a 128-frame vocoder bucket, vocodes, and trims every
-utterance to ``dec_lens`` frames and ``dec_lens · hop`` samples. Writes mel
+utterance to ``dec_lens`` frames and ``dec_lens`` times the vocoder's hop
+in samples. Writes mel
 ``.npy`` files and, with ``--hifigan-checkpoint``, 22 kHz wavs.
 
 With no ``--device`` it serves on every visible card (``CUDA_VISIBLE_DEVICES``
@@ -33,11 +34,8 @@ from ..data.filelist import save_wav
 from ..models.registry import load_checkpoint, load_frontend_config
 from ..text.processing import TextProcessing
 from ..utils.device import resolve_devices
-from ..utils.profiling import span
-from ..utils.serving import Replicas, round_up, serving_sharding, text_batches
-from .hifigan_infer import load_generator, vocode_replicas
-
-VOCODER_BUCKET = 128  # frames
+from ..utils.serving import VOCODER_BUCKET, serve
+from .hifigan_infer import load_generator
 
 
 def parse_args(argv=None):
@@ -60,7 +58,6 @@ def parse_args(argv=None):
     p.add_argument("--symbol-set", default=None)
     p.add_argument("--p-arpabet", type=float, default=None)
     p.add_argument("--sampling-rate", type=int, default=22050)
-    p.add_argument("--hop-length", type=int, default=256)
     p.add_argument("--device", default=None,
                    help="torch device (default: every visible card, each batch split "
                         "over them; CUDA_VISIBLE_DEVICES picks the cards)")
@@ -69,17 +66,16 @@ def parse_args(argv=None):
 
 def synthesize(fastpitch, generator, encoded: Sequence[np.ndarray], *,
                device: Union[torch.device, Sequence[torch.device]], batch_size: int = 8,
-               pace: float = 1.0, max_mel_len: int = 2048, hop_length: int = 256,
-               text_bucket: int = 16, frame_bucket: int = VOCODER_BUCKET,
-               dtype: Optional[torch.dtype] = None):
-    """The serving loop. Yields ``(index, mel [n, n_mel], audio [n·hop] or
-    None)`` per utterance, as f32 numpy, in batch order; ``index`` is the
-    utterance's position in ``encoded``.
+               pace: float = 1.0, max_mel_len: int = 2048, text_bucket: int = 16,
+               frame_bucket: int = VOCODER_BUCKET, dtype: Optional[torch.dtype] = None):
+    """The serving loop (``utils/serving.py::serve``). Yields ``(index, mel
+    [n, n_mel], audio [n·hop] or None)`` per utterance, as f32 numpy, in
+    batch order; ``index`` is the utterance's position in ``encoded``.
 
     ``device`` is one device or a list: each batch is split over the list
     in contiguous rows, one replica of each model a device, one thread a
-    replica (``utils/serving.py``), and the vocoder bucket is taken over the
-    whole batch, so the results equal one device's at the rounded batch.
+    replica, and the vocoder bucket is taken over the whole batch, so the
+    results equal one device's at the rounded batch.
 
     Text is padded to ``text_bucket`` tokens and the vocoder input to
     ``frame_bucket`` frames. Padding is not neutral: the predictors' second
@@ -87,33 +83,15 @@ def synthesize(fastpitch, generator, encoded: Sequence[np.ndarray], *,
     last tokens' durations depend on the bucket, in the JAX CLI as here.
 
     With tracing on (``utils/profiling.py``) each batch is a ``serve.batch``
-    span, closed before its utterances are yielded, holding each replica's
-    ``serve.acoustic`` (device-timed) and ``serve.wait`` (the host read of
-    the lengths) and the vocoder stage's spans (``vocode_replicas``).
+    span holding each replica's ``serve.acoustic``, ``serve.wait`` and the
+    vocoder stage's spans.
     """
-    devices = resolve_devices(device)
-    put, replicate, batch_size = serving_sharding(batch_size, devices)
-    models = replicate(fastpitch)
-    generators = None if generator is None else replicate(generator)
+    def acoustic(fp, b, text, lens):
+        return fp.infer(text, lens, pace=pace, max_mel_len=max_mel_len)[:2]
 
-    def infer(i, text, lens):
-        with span("serve.acoustic", text.device):
-            mel, dec_lens = models[i].infer(text, lens, pace=pace, max_mel_len=max_mel_len)[:2]
-            # the host boundary is f32 whatever the compute type
-            mel = mel.float()
-        with span("serve.wait"):
-            return mel, dec_lens.cpu().numpy()
-
-    with Replicas(devices) as replicas:
-        for idxs, text, lens in text_batches(encoded, batch_size, text_bucket):
-            with span("serve.batch"):
-                mels, dec_lens = zip(*replicas.map(infer, put(text), put(lens), dtype=dtype))
-                dec_lens = np.concatenate(dec_lens)
-                M = min(round_up(int(dec_lens[:len(idxs)].max()), frame_bucket), max_mel_len)
-                mel, audio = vocode_replicas(replicas, generators, mels, M, dtype)
-            for r, j in enumerate(idxs):
-                n = int(dec_lens[r])
-                yield j, mel[r, :n], (None if audio is None else audio[r, :n * hop_length])
+    return serve(fastpitch, generator, encoded, acoustic, device=device, batch_size=batch_size,
+                 dtype=dtype, acoustic_dtype=dtype, text_bucket=text_bucket,
+                 frame_bucket=frame_bucket)
 
 
 def text_processing(checkpoint, symbol_set: Optional[str] = None,
@@ -146,7 +124,6 @@ def main(argv=None):
     for j, mel, audio in synthesize(
             model, generator, encoded, device=devices, batch_size=args.batch_size,
             pace=args.pace, max_mel_len=args.max_mel_len,
-            hop_length=args.hop_length,
             dtype=torch.bfloat16 if args.amp else None):
         np.save(out_dir / f"utt_{j:04d}_mel.npy", mel)
         if audio is not None:

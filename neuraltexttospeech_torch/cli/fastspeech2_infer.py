@@ -35,10 +35,8 @@ from ..data.filelist import save_wav
 from ..models.registry import load_checkpoint, load_frontend_config
 from ..text.processing import TextProcessing
 from ..utils.device import resolve_devices
-from ..utils.serving import Replicas, round_up, serving_sharding, text_batches
-from .hifigan_infer import load_generator, vocode_replicas
-
-VOCODER_BUCKET = 128  # frames
+from ..utils.serving import serve
+from .hifigan_infer import load_generator
 
 
 def parse_args(argv=None):
@@ -68,30 +66,17 @@ def synthesize(model, generator, encoded: Sequence[np.ndarray], *,
                device: Union[torch.device, Sequence[torch.device]], max_mel_len: int = 1024,
                p_control: float = 1.0, e_control: float = 1.0, d_control: float = 1.0,
                batch_size: int = 8, dtype: Optional[torch.dtype] = None):
-    """The serving loop. Yields ``(index, mel [n, n_mel], audio [n·hop] or
-    None)`` per utterance, as f32 numpy, in batch order. ``device`` is one
-    device or a list, each batch split over it (``utils/serving.py``)."""
-    devices = resolve_devices(device)
-    put, replicate, batch_size = serving_sharding(batch_size, devices)
-    models = replicate(model)
-    generators = None if generator is None else replicate(generator)
-    hop = 0 if generator is None else generator.config.hop_size
+    """The serving loop (``utils/serving.py::serve``). Yields ``(index, mel
+    [n, n_mel], audio [n·hop] or None)`` per utterance, as f32 numpy, in
+    batch order. ``device`` is one device or a list, each batch split over
+    it."""
+    def acoustic(fs2, b, text, lens):
+        out = fs2(text, lens, mel_max_len=max_mel_len, p_control=p_control,
+                  e_control=e_control, d_control=d_control)
+        return out.mel_postnet if out.mel_postnet is not None else out.mel_out, out.dec_lens
 
-    def infer(i, text, lens):
-        out = models[i](text, lens, mel_max_len=max_mel_len, p_control=p_control,
-                        e_control=e_control, d_control=d_control)
-        mel = out.mel_postnet if out.mel_postnet is not None else out.mel_out
-        return mel.float(), out.dec_lens.cpu().numpy()  # the fetch waits for the batch
-
-    with Replicas(devices) as replicas:
-        for idxs, text, lens in text_batches(encoded, batch_size):
-            mels, dec_lens = zip(*replicas.map(infer, put(text), put(lens), dtype=dtype))
-            dec_lens = np.concatenate(dec_lens)
-            M = min(round_up(int(dec_lens[:len(idxs)].max()), VOCODER_BUCKET), max_mel_len)
-            mel, audio = vocode_replicas(replicas, generators, mels, M, dtype)
-            for r, j in enumerate(idxs):
-                n = int(dec_lens[r])
-                yield j, mel[r, :n], (None if audio is None else audio[r, :n * hop])
+    return serve(model, generator, encoded, acoustic, device=device, batch_size=batch_size,
+                 dtype=dtype, acoustic_dtype=dtype)
 
 
 def main(argv=None):

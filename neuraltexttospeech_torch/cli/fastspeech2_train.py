@@ -28,7 +28,6 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
-import time
 
 import numpy as np
 import torch
@@ -175,46 +174,17 @@ def main(argv=None):
     print(f"FastSpeech2: {n_params / 1e6:.1f}M params, {len(ds)} items, "
           f"{'bf16' if args.amp else 'f32'}, device {device}, dp={mesh.n_data if mesh else 1}")
 
-    position = (0, 0)  # (epoch, batches done in it)
-    if args.resume:
-        state = trainer.resume()
-        if state is not None:
-            position = tuple(state["position"])
-            print(f"resumed at step {trainer.step}")
+    def batches(epoch, skip):
+        return ds.batches(args.batch_size, seed=args.seed + epoch,
+                          max_batches=args.steps_per_epoch, skip=skip)
 
-    metrics, val, steps, t_start = {}, {}, 0, time.perf_counter()
-    start_epoch, skip = position
-    for epoch in range(start_epoch, args.epochs):
-        skip_now = skip if epoch == start_epoch else 0
+    def val_batches():
+        return val_ds.batches(args.batch_size, shuffle=False, drop_last=False)
 
-        def produce(epoch=epoch, skip_now=skip_now):
-            for k, b in enumerate(ds.batches(args.batch_size, seed=args.seed + epoch,
-                                             max_batches=args.steps_per_epoch,
-                                             skip=skip_now)):
-                b["position"] = (epoch, skip_now + k + 1)
-                yield b
-
-        def on_step(batch):
-            trainer.extra_state["position"] = batch["position"]
-
-        trainer.extra_state["position"] = (epoch, skip_now)
-        step0 = trainer.step
-        metrics = trainer.fit_epoch(trainer.device_iter(produce()), epoch=epoch,
-                                    on_step=on_step)
-        steps += trainer.step - step0
-        print(f"epoch {epoch}: " + " ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.items())))
-        if val_ds is not None:
-            val = trainer.evaluate(
-                loss_fn, val_ds.batches(args.batch_size, shuffle=False, drop_last=False))
-            print(f"epoch {epoch} val: "
-                  + " ".join(f"{k}={v:.4f}" for k, v in sorted(val.items())))
-        trainer.extra_state["position"] = (epoch + 1, 0)
-        if (epoch + 1) % max(args.epochs_per_checkpoint, 1) == 0:
-            trainer.save()
-    trainer.save()
-    print("done")
-    return {"trainer": trainer, "metrics": metrics, "val": val, "steps": steps,
-            "seconds": time.perf_counter() - t_start}
+    return {"trainer": trainer, **trainer.fit(
+        batches, args.epochs, resume=args.resume,
+        epochs_per_checkpoint=args.epochs_per_checkpoint,
+        val_batches=None if val_ds is None else val_batches)}
 
 
 if __name__ == "__main__":

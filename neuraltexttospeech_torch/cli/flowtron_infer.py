@@ -45,10 +45,8 @@ from ..text.processing import TextProcessing
 from ..train.checkpoint import checkpoint_dir
 from ..utils.device import resolve_devices
 from ..utils.generators import seeded_generator
-from ..utils.serving import Replicas, round_up, serving_sharding, text_batches
-from .hifigan_infer import load_generator, vocode_replicas
-
-VOCODER_BUCKET = 128  # frames
+from ..utils.serving import serve
+from .hifigan_infer import load_generator
 
 
 def parse_args(argv=None):
@@ -88,13 +86,13 @@ def load_flowtron(path, device: torch.device, amp: bool = False) -> Flowtron:
     return model.to(device).eval()
 
 
-def trim_lengths(gate_prob: np.ndarray, threshold: float = 0.5) -> np.ndarray:
+def trim_lengths(gate_prob: torch.Tensor, threshold: float = 0.5) -> torch.Tensor:
     """Each row's frames: the first where ``gate_prob > threshold``, all of
     them when that is frame 0 or there is none."""
     fired = gate_prob > threshold
-    stop = np.argmax(fired, axis=1)
-    ok = fired[np.arange(len(stop)), stop] & (stop > 0)
-    return np.where(ok, stop, gate_prob.shape[1])
+    stop = torch.argmax(fired.to(torch.uint8), dim=1)
+    ok = fired.gather(1, stop[:, None])[:, 0] & (stop > 0)
+    return torch.where(ok, stop, gate_prob.shape[1])
 
 
 def synthesize(model, generator, encoded: Sequence[np.ndarray], *,
@@ -102,40 +100,30 @@ def synthesize(model, generator, encoded: Sequence[np.ndarray], *,
                n_frames: int = 400, sigma: float = 0.8, speaker: int = 0, seed: int = 0,
                gate_threshold: float = 0.5, dtype: Optional[torch.dtype] = None,
                noise: Optional[Callable[[int, tuple], torch.Tensor]] = None):
-    """The serving loop. Yields ``(index, mel [n, n_mel], audio [n·hop] or
-    None)`` per utterance, as f32 numpy, in batch order. ``noise(b, shape)``
-    gives batch b's unit-variance draws (default: ``randn`` from a generator
-    seeded ``(seed, b)``); ``dtype`` is the vocoder's compute dtype.
+    """The serving loop (``utils/serving.py::serve``). Yields ``(index, mel
+    [n, n_mel], audio [n·hop] or None)`` per utterance, as f32 numpy, in
+    batch order. ``noise(b, shape)`` gives batch b's unit-variance draws
+    (default: ``randn`` from a generator seeded ``(seed, b)``); ``dtype`` is
+    the vocoder's compute dtype.
 
-    ``device`` is one device or a list, each batch split over it
-    (``utils/serving.py``); ``z`` is drawn once for the whole batch on the
-    first device and split like the text, so the draws are one device's."""
-    devices = resolve_devices(device)
-    put, replicate, batch_size = serving_sharding(batch_size, devices)
-    models = replicate(model)
-    generators = None if generator is None else replicate(generator)
-    hop = 0 if generator is None else generator.config.hop_size
+    ``device`` is one device or a list, each batch split over it; ``z`` is
+    drawn once for the whole batch on the first device and split like the
+    text, so the draws are one device's."""
+    first = resolve_devices(device)[0]
     n_mel = model.config.n_mel_channels
 
-    def infer(i, z, speakers, text, lens):
-        mel, gate, _ = models[i].infer(z * sigma, speakers, text, lens)
-        return mel.float(), trim_lengths(torch.sigmoid(gate.float()).cpu().numpy(),
-                                         gate_threshold)
+    def draws(b, rows):
+        shape = (rows, n_frames, n_mel)
+        z = (noise(b, shape).to(first) if noise is not None else
+             torch.randn(shape, generator=seeded_generator(first, seed, b), device=first))
+        return z, np.full(rows, speaker, np.int32)
 
-    with Replicas(devices) as replicas:
-        for b, (idxs, text, lens) in enumerate(text_batches(encoded, batch_size)):
-            shape = (text.shape[0], n_frames, n_mel)
-            z = (noise(b, shape).to(devices[0]) if noise is not None else
-                 torch.randn(shape, generator=seeded_generator(devices[0], seed, b),
-                             device=devices[0]))
-            mels, n_all = zip(*replicas.map(
-                infer, put(z), put(np.full(shape[0], speaker, np.int32)), put(text), put(lens)))
-            n_all = np.concatenate(n_all)
-            M = min(round_up(int(n_all[:len(idxs)].max()), VOCODER_BUCKET), n_frames)
-            mel, audio = vocode_replicas(replicas, generators, mels, M, dtype)
-            for r, j in enumerate(idxs):
-                n = int(n_all[r])
-                yield j, mel[r, :n], (None if audio is None else audio[r, :n * hop])
+    def acoustic(flowtron, b, text, lens, z, speakers):
+        mel, gate, _ = flowtron.infer(z * sigma, speakers, text, lens)
+        return mel, trim_lengths(torch.sigmoid(gate.float()), gate_threshold)
+
+    return serve(model, generator, encoded, acoustic, device=device, batch_size=batch_size,
+                 dtype=dtype, batch_inputs=draws)
 
 
 def main(argv=None):

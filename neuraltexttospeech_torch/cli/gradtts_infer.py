@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import argparse
 import pathlib
-import time
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -39,10 +38,10 @@ from ..models.gradtts import fix_len_compatibility
 from ..models.registry import load_checkpoint
 from ..text.processing import TextProcessing, intersperse
 from ..utils.device import resolve_devices
-from ..utils.serving import Replicas, round_up, serving_sharding, text_batches
-from .hifigan_infer import load_generator, vocode_replicas
+from ..utils.serving import VOCODER_BUCKET, serve
+from .hifigan_infer import load_generator
 
-VOCODER_BUCKET = 128  # frames
+HOP = 256  # samples a frame, for the RTF when serving without a vocoder
 
 
 def parse_args(argv=None):
@@ -63,7 +62,6 @@ def parse_args(argv=None):
                         "to 16-token text buckets")
     p.add_argument("--max-mel-len", type=int, default=1000)
     p.add_argument("--sampling-rate", type=int, default=22050)
-    p.add_argument("--hop-length", type=int, default=256)
     p.add_argument("--device", default=None,
                    help="torch device (default: every visible card, each batch split "
                         "over them; CUDA_VISIBLE_DEVICES picks the cards)")
@@ -79,43 +77,36 @@ def encode(lines: Sequence[str], n_symbols: int):
 def synthesize(model, generator, encoded: Sequence[np.ndarray], *,
                device: Union[torch.device, Sequence[torch.device]], n_timesteps: int = 10,
                temperature: float = 1.5, stoc: bool = False, length_scale: float = 1.0,
-               batch_size: int = 8, max_mel_len: int = 1000, hop_length: int = 256,
-               sampling_rate: int = 22050, frame_bucket: int = VOCODER_BUCKET,
-               dtype: Optional[torch.dtype] = None):
-    """The serving loop. Yields ``(index, mel [n, n_feats], audio [n·hop] or
-    None, batch RTF)`` per utterance, as f32 numpy, in batch order.
+               batch_size: int = 8, max_mel_len: int = 1000, sampling_rate: int = 22050,
+               frame_bucket: int = VOCODER_BUCKET, dtype: Optional[torch.dtype] = None):
+    """The serving loop (``utils/serving.py::serve``). Yields ``(index, mel
+    [n, n_feats], audio [n·hop] or None, batch RTF)`` per utterance, as f32
+    numpy, in batch order. The RTF is the seconds from the batch's start to
+    its lengths on the host over the seconds of audio its frames make at the
+    vocoder's hop (``HOP`` samples a frame without one).
 
-    ``device`` is one device or a list, each batch split over it
-    (``utils/serving.py``). Every replica draws from its own generator seeded
-    ``b`` on the first device, at the whole batch's shape, and keeps its rows
+    ``device`` is one device or a list, each batch split over it. Every
+    replica draws from its own generator seeded ``b`` on the first device,
+    at the whole batch's shape, and keeps its rows
     (``parallel/mesh.py::global_draw``): the draws are one device's."""
-    devices = resolve_devices(device)
-    put, replicate, batch_size = serving_sharding(batch_size, devices)
-    models = replicate(model)
-    generators = None if generator is None else replicate(generator)
+    first = resolve_devices(device)[0]
     max_len = fix_len_compatibility(max_mel_len)
-    with Replicas(devices) as replicas:
-        for b, (idxs, text, lens) in enumerate(text_batches(encoded, batch_size)):
-            t0 = time.perf_counter()
+    hop = HOP if generator is None else generator.config.hop_size
+    rtf = [0.0]
 
-            def infer(i, text, lens):
-                gen = torch.Generator(device=devices[0]).manual_seed(b)
-                _, dec, _, ylen = models[i](text, lens, n_timesteps, temperature=temperature,
-                                            stoc=stoc, length_scale=length_scale,
-                                            max_mel_len=max_len, generator=gen)
-                # the host boundary is f32 whatever the compute type; the fetch waits
-                return dec.float(), ylen.cpu().numpy()
+    def acoustic(gradtts, b, text, lens):
+        _, dec, _, ylen = gradtts(text, lens, n_timesteps, temperature=temperature, stoc=stoc,
+                                  length_scale=length_scale, max_mel_len=max_len,
+                                  generator=torch.Generator(device=first).manual_seed(b))
+        return dec, ylen
 
-            decs, ylen = zip(*replicas.map(infer, put(text), put(lens), dtype=dtype))
-            ylen = np.concatenate(ylen)
-            frames = int(ylen[:len(idxs)].sum())
-            rtf = (time.perf_counter() - t0) * sampling_rate / max(frames * hop_length, 1)
-            M = min(round_up(int(ylen[:len(idxs)].max()), frame_bucket), max_len)
-            dec, audio = vocode_replicas(replicas, generators, decs, M, dtype)
-            for r, j in enumerate(idxs):
-                n = int(ylen[r])
-                yield (j, dec[r, :n], None if audio is None else audio[r, :n * hop_length],
-                       rtf)
+    def timed(lengths, seconds):
+        rtf[0] = seconds * sampling_rate / max(int(lengths.sum()) * hop, 1)
+
+    for j, mel, audio in serve(model, generator, encoded, acoustic, device=device,
+                               batch_size=batch_size, dtype=dtype, acoustic_dtype=dtype,
+                               frame_bucket=frame_bucket, on_lengths=timed):
+        yield j, mel, audio, rtf[0]
 
 
 def main(argv=None):
@@ -134,8 +125,8 @@ def main(argv=None):
             model, vocoder, encode(lines, config.n_symbols), device=devices,
             n_timesteps=args.timesteps, temperature=args.temperature, stoc=args.stoc,
             length_scale=args.length_scale, batch_size=args.batch_size,
-            max_mel_len=args.max_mel_len, hop_length=args.hop_length,
-            sampling_rate=args.sampling_rate, dtype=torch.bfloat16 if args.amp else None):
+            max_mel_len=args.max_mel_len, sampling_rate=args.sampling_rate,
+            dtype=torch.bfloat16 if args.amp else None):
         np.save(out_dir / f"utt_{j:04d}_mel.npy", mel)
         if audio is not None:
             save_wav(str(out_dir / f"utt_{j:04d}.wav"), audio, args.sampling_rate)

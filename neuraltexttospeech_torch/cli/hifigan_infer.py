@@ -95,7 +95,7 @@ def vocode(generator, mel: torch.Tensor, dtype: Optional[torch.dtype] = None) ->
 
 def vocode_replicas(replicas, generators, mels, frames: int,
                     dtype: Optional[torch.dtype] = None):
-    """The serving CLIs' last stage over ``utils/serving.py::Replicas``: each
+    """The last stage of ``utils/serving.py::serve``, over its ``Replicas``: each
     replica's mels ``[b, T, num_mels]`` to host f32 numpy and, with
     ``generators`` (one a replica), vocoded at their first ``frames`` frames,
     the vocoder bucket the caller took over the whole batch. Returns the

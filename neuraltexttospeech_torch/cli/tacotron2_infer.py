@@ -41,10 +41,9 @@ from ..models.registry import load_checkpoint, load_model_config
 from ..text.processing import TextProcessing
 from ..train.checkpoint import checkpoint_dir
 from ..utils.device import resolve_devices
-from ..utils.serving import Replicas, round_up, serving_sharding, text_batches
-from .hifigan_infer import load_generator, vocode_replicas
+from ..utils.serving import serve
+from .hifigan_infer import load_generator
 
-VOCODER_BUCKET = 128  # frames
 PRENET_SEED = 7
 
 
@@ -84,38 +83,25 @@ def load_tacotron2(path, device: torch.device, max_decoder_steps: int = 1000,
 def synthesize(model, generator, encoded: Sequence[np.ndarray], *,
                device: Union[torch.device, Sequence[torch.device]], batch_size: int = 8,
                dtype: Optional[torch.dtype] = None):
-    """The serving loop. Yields ``(index, mel [n, n_mel], audio [n·hop] or
-    None)`` per utterance, as f32 numpy, in batch order; ``dtype`` is the
-    vocoder's compute dtype.
+    """The serving loop (``utils/serving.py::serve``). Yields ``(index, mel
+    [n, n_mel], audio [n·hop] or None)`` per utterance, as f32 numpy, in
+    batch order; ``dtype`` is the vocoder's compute dtype.
 
-    ``device`` is one device or a list, each batch split over it
-    (``utils/serving.py``). Every replica's prenet draws from its own
-    generator seeded ``PRENET_SEED`` on the first device, at the whole batch's
-    shape, and keeps its rows (``parallel/mesh.py::global_draw``); each runs
-    all the decoder steps (the scan form), so the results are one device's."""
-    devices = resolve_devices(device)
-    put, replicate, batch_size = serving_sharding(batch_size, devices)
-    models = replicate(model)
-    generators = None if generator is None else replicate(generator)
-    hop = 0 if generator is None else generator.config.hop_size
+    ``device`` is one device or a list, each batch split over it. Every
+    replica's prenet draws from its own generator seeded ``PRENET_SEED`` on
+    the first device, at the whole batch's shape, and keeps its rows
+    (``parallel/mesh.py::global_draw``); each runs all the decoder steps (the
+    scan form), so the results are one device's."""
+    first = resolve_devices(device)[0]
 
-    def infer(i, text, lens):
-        gen = torch.Generator(device=devices[0])
+    def acoustic(tacotron2, b, text, lens):
+        gen = torch.Generator(device=first)
         gen.manual_seed(PRENET_SEED)
-        out = models[i].infer(text, lens, generator=gen)
-        # the fetch waits for the batch
-        return out.mel_out_postnet.float(), out.mel_lengths.cpu().numpy()
+        out = tacotron2.infer(text, lens, generator=gen)
+        return out.mel_out_postnet, out.mel_lengths
 
-    with Replicas(devices) as replicas:
-        for idxs, text, lens in text_batches(encoded, batch_size):
-            mels, n_all = zip(*replicas.map(infer, put(text), put(lens)))
-            n_all = np.concatenate(n_all)
-            M = min(round_up(max(int(n_all[:len(idxs)].max()), 1), VOCODER_BUCKET),
-                    mels[0].shape[1])
-            mel, audio = vocode_replicas(replicas, generators, mels, M, dtype)
-            for r, j in enumerate(idxs):
-                n = int(n_all[r])
-                yield j, mel[r, :n], (None if audio is None else audio[r, :n * hop])
+    return serve(model, generator, encoded, acoustic, device=device, batch_size=batch_size,
+                 dtype=dtype)
 
 
 def main(argv=None):

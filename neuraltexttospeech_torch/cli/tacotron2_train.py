@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import argparse
 import pathlib
-import time
 
 import torch
 
@@ -69,7 +68,8 @@ def parse_args(argv=None):
 
 def main(argv=None):
     """Train; returns ``{"trainer", "config", "metrics" (the last epoch's
-    means), "steps" (run by this call), "seconds"}``."""
+    means), "val" (empty: no validation set), "steps" (run by this call),
+    "seconds"}``."""
     args = parse_args(argv)
     device, mesh = launch(args.device, args.batch_size)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -95,40 +95,13 @@ def main(argv=None):
     print(f"Tacotron2: {n_params / 1e6:.1f}M params, {len(ds)} items, "
           f"{'bf16' if args.amp else 'f32'}, device {device}, dp={mesh.n_data if mesh else 1}")
 
-    position = (0, 0)  # (epoch, batches done in it)
-    if args.resume:
-        state = trainer.resume()
-        if state is not None:
-            position = tuple(state["position"])
-            print(f"resumed at step {trainer.step}")
+    def batches(epoch, skip):
+        return ds.batches(args.batch_size, seed=args.seed + epoch,
+                          max_batches=args.steps_per_epoch, skip=skip)
 
-    metrics, steps, t_start = {}, 0, time.perf_counter()
-    start_epoch, skip = position
-    for epoch in range(start_epoch, args.epochs):
-        skip_now = skip if epoch == start_epoch else 0
-
-        def produce(epoch=epoch, skip_now=skip_now):
-            for k, b in enumerate(ds.batches(args.batch_size, seed=args.seed + epoch,
-                                             max_batches=args.steps_per_epoch, skip=skip_now)):
-                b["position"] = (epoch, skip_now + k + 1)
-                yield b
-
-        def on_step(batch):
-            trainer.extra_state["position"] = batch["position"]
-
-        trainer.extra_state["position"] = (epoch, skip_now)
-        step0 = trainer.step
-        metrics = trainer.fit_epoch(trainer.device_iter(produce()), epoch=epoch,
-                                    on_step=on_step)
-        steps += trainer.step - step0
-        print(f"epoch {epoch}: " + " ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.items())))
-        trainer.extra_state["position"] = (epoch + 1, 0)
-        if (epoch + 1) % max(args.epochs_per_checkpoint, 1) == 0:
-            trainer.save()
-    trainer.save()
-    print("done")
-    return {"trainer": trainer, "config": config, "metrics": metrics, "steps": steps,
-            "seconds": time.perf_counter() - t_start}
+    return {"trainer": trainer, "config": config, **trainer.fit(
+        batches, args.epochs, resume=args.resume,
+        epochs_per_checkpoint=args.epochs_per_checkpoint)}
 
 
 if __name__ == "__main__":

@@ -46,10 +46,8 @@ from ..text.processing import TextProcessing
 from ..train.checkpoint import checkpoint_dir
 from ..utils.device import resolve_devices
 from ..utils.masking import mask_from_lens
-from ..utils.serving import Replicas, round_up, serving_sharding, text_batches
-from .hifigan_infer import load_generator, vocode_replicas
-
-VOCODER_BUCKET = 128  # frames
+from ..utils.serving import serve
+from .hifigan_infer import load_generator
 
 
 def parse_args(argv=None):
@@ -108,29 +106,15 @@ def synth(heads, text: torch.Tensor, text_lens: torch.Tensor, max_mel_len: int):
 def synthesize(heads, generator, encoded: Sequence[np.ndarray], *,
                device: Union[torch.device, Sequence[torch.device]], max_mel_len: int = 1024,
                batch_size: int = 8, dtype: Optional[torch.dtype] = None):
-    """The serving loop. Yields ``(index, mel [n, n_mel], audio [n·hop] or
-    None)`` per utterance, as f32 numpy, in batch order; ``dtype`` is the
-    vocoder's compute dtype. ``device`` is one device or a list, each batch
-    split over it (``utils/serving.py``)."""
-    devices = resolve_devices(device)
-    put, replicate, batch_size = serving_sharding(batch_size, devices)
-    replica_heads = replicate(tuple(heads))
-    generators = None if generator is None else replicate(generator)
-    hop = 0 if generator is None else generator.config.hop_size
+    """The serving loop (``utils/serving.py::serve``). Yields ``(index, mel
+    [n, n_mel], audio [n·hop] or None)`` per utterance, as f32 numpy, in
+    batch order; ``dtype`` is the vocoder's compute dtype. ``device`` is one
+    device or a list, each batch split over it."""
+    def acoustic(replica_heads, b, text, lens):
+        return synth(replica_heads, text, lens, max_mel_len)[:2]
 
-    def infer(i, text, lens):
-        mel, n, _ = synth(replica_heads[i], text, lens, max_mel_len)
-        return mel, n.cpu().numpy()  # the fetch waits for the batch
-
-    with Replicas(devices) as replicas:
-        for idxs, text, lens in text_batches(encoded, batch_size):
-            mels, n_all = zip(*replicas.map(infer, put(text), put(lens)))
-            n_all = np.concatenate(n_all)
-            M = min(round_up(max(int(n_all[:len(idxs)].max()), 1), VOCODER_BUCKET), max_mel_len)
-            mel, audio = vocode_replicas(replicas, generators, mels, M, dtype)
-            for r, j in enumerate(idxs):
-                n = int(n_all[r])
-                yield j, mel[r, :n], (None if audio is None else audio[r, :n * hop])
+    return serve(tuple(heads), generator, encoded, acoustic, device=device,
+                 batch_size=batch_size, dtype=dtype)
 
 
 def main(argv=None):

@@ -11,9 +11,11 @@ key, so a resumed run repeats the straight run's masks.
 Metrics stay on the device until they are logged (``_MetricMean``): no host
 synchronisation per step. Checkpoints (``train/checkpoint.py``) hold the
 step, the model, the optimizer's moments and accumulator, and whatever the
-caller keeps in ``Trainer.extra_state`` (the data order's position); a
-serving checkpoint of the model sits beside them when the caller says how
-to write one.
+caller keeps in ``Trainer.extra_state``; a serving checkpoint of the model
+sits beside them when the caller says how to write one. :meth:`Trainer.fit`
+is the training CLIs' epoch loop: it keeps there the data order's
+``position`` (and a dataset's ``data_rng``), so a run resumes at the step
+of its newest checkpoint.
 
 ``dtype=torch.bfloat16`` runs the loss function's forward in bf16
 (``nn/precision.py``, the JAX package's ``dtype=bf16``); the parameters,
@@ -106,6 +108,10 @@ def _cycle_rows(batch: Dict[str, Any], multiple: int) -> Dict[str, Any]:
     return {k: v[torch.as_tensor(idx) if isinstance(v, torch.Tensor) else idx]
             if isinstance(v, (torch.Tensor, np.ndarray)) and v.ndim >= 1 else v
             for k, v in batch.items()}
+
+
+def _format(metrics: Dict[str, float]) -> str:
+    return " ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.items()))
 
 
 class Trainer:
@@ -234,6 +240,71 @@ class Trainer:
         means = self.metrics.result()
         means["steps_per_sec"] = n / max(time.perf_counter() - t0, 1e-9)
         return means
+
+    def fit(self, batches: Callable[[int, int], Iterable[Dict[str, Any]]], epochs: int, *,
+            resume: bool = False, epochs_per_checkpoint: int = 1,
+            val_batches: Optional[Callable[[], Iterable[Dict[str, Any]]]] = None,
+            data_rng: Optional[np.random.Generator] = None,
+            on_step: Optional[Callable[[Dict[str, Any]], None]] = None,
+            on_epoch: Optional[Callable[[Dict[str, float]], None]] = None) -> Dict[str, Any]:
+        """The training CLIs' epoch loop, resumable at any step.
+
+        ``batches(epoch, skip)`` gives the host batches of ``epoch`` after
+        its first ``skip``. With ``resume`` the newest checkpoint is restored
+        and training goes on at its ``position``, ``(epoch, batches done in
+        it)``; ``data_rng`` (a dataset's ``np.random.Generator``, if its
+        batches draw from one) is saved under ``data_rng`` as it stood when
+        the step's batch was made, and restored. Each epoch is
+        :meth:`fit_epoch`, then ``on_epoch(metrics)`` (which may add
+        metrics), its log line, and the loss over ``val_batches()`` when
+        given; a checkpoint is written every ``epochs_per_checkpoint``
+        epochs and at the end. ``on_step(batch)`` runs after each step.
+        Returns ``{"metrics" (the last epoch's means), "val" (the last
+        validation means), "steps" (run by this call), "seconds"}``."""
+        position = (0, 0)
+        state = self.resume() if resume else None
+        if state is not None:
+            position = tuple(state["position"])
+            if data_rng is not None:
+                data_rng.bit_generator.state = state["data_rng"]
+            print(f"resumed at step {self.step}")
+
+        def stamped(epoch, skip):
+            for k, batch in enumerate(batches(epoch, skip), skip + 1):
+                batch["position"] = (epoch, k)
+                if data_rng is not None:
+                    batch["data_rng"] = data_rng.bit_generator.state
+                yield batch
+
+        def step_done(batch):
+            self.extra_state["position"] = batch["position"]
+            if data_rng is not None:
+                self.extra_state["data_rng"] = batch["data_rng"]
+            if on_step is not None:
+                on_step(batch)
+
+        metrics, val, step0, t0 = {}, {}, self.step, time.perf_counter()
+        start, skip = position
+        for epoch in range(start, epochs):
+            skip = skip if epoch == start else 0
+            self.extra_state["position"] = (epoch, skip)
+            if data_rng is not None:
+                self.extra_state["data_rng"] = data_rng.bit_generator.state
+            metrics = self.fit_epoch(self.device_iter(stamped(epoch, skip)), epoch=epoch,
+                                     on_step=step_done)
+            if on_epoch is not None:
+                on_epoch(metrics)
+            print(f"epoch {epoch}: " + _format(metrics))
+            if val_batches is not None:
+                val = self.evaluate(self._loss_fn, val_batches())
+                print(f"epoch {epoch} val: " + _format(val))
+            self.extra_state["position"] = (epoch + 1, 0)
+            if (epoch + 1) % max(epochs_per_checkpoint, 1) == 0:
+                self.save()
+        self.save()
+        print("done")
+        return {"metrics": metrics, "val": val, "steps": self.step - step0,
+                "seconds": time.perf_counter() - t0}
 
     @torch.no_grad()
     def evaluate(self, loss_fn_eval: LossFn, batches: Iterable[Dict[str, Any]]

@@ -16,24 +16,32 @@ it). JAX computes every batch-level quantity over the whole batch, so a
 replica does too: its random draws are its rows of the global draw
 (``parallel/mesh.py::ServingReplica``), and the CLIs take the vocoder's
 frame bucket over every replica's lengths.
+
+:func:`serve` is the text → mel → wav loop of every ``cli/*_infer.py``'s
+``synthesize``: a family brings only its acoustic stage.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import time
 from concurrent.futures import ThreadPoolExecutor, wait
-from typing import Callable, List, Sequence, Union
+from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from ..cli.hifigan_infer import vocode_replicas
 from ..nn.precision import compute_dtype
 from ..parallel.mesh import ServingReplica
 from .device import resolve_devices
+from .profiling import span
 
-__all__ = ["round_up", "text_batches", "serving_sharding", "Replicas"]
+__all__ = ["round_up", "text_batches", "serving_sharding", "Replicas", "serve",
+           "VOCODER_BUCKET"]
 
+VOCODER_BUCKET = 128  # frames
 Devices = Union[str, torch.device, Sequence[Union[str, torch.device]]]
 
 
@@ -170,3 +178,66 @@ def text_batches(encoded: Sequence[np.ndarray], batch_size: int,
             text[r, :len(encoded[j])] = encoded[j]
             lens[r] = len(encoded[j])
         yield idxs, text, lens
+
+
+def serve(model, generator, encoded: Sequence[np.ndarray], acoustic: Callable, *,
+          device: Devices, batch_size: int = 8, dtype: Optional[torch.dtype] = None,
+          acoustic_dtype: Optional[torch.dtype] = None, text_bucket: int = 16,
+          frame_bucket: int = VOCODER_BUCKET, batch_inputs: Optional[Callable] = None,
+          on_lengths: Optional[Callable] = None):
+    """The serving loop. Yields ``(index, mel [n, n_mel], audio [n·hop] or
+    None)`` per utterance, as f32 numpy, in batch order (``index``: its
+    position in ``encoded``); a batch's utterances come before the next
+    batch runs.
+
+    ``model`` (a module or a tuple of them) and the vocoder ``generator``
+    (or None) get one replica a device of ``device`` (one or a list), each
+    batch split over them in contiguous rows (:func:`serving_sharding`).
+    Text is padded to ``text_bucket`` tokens. ``acoustic(model_i, b, text,
+    lens, *inputs)`` is the family's stage on batch ``b``'s rows of replica
+    ``i``, computing in ``acoustic_dtype``: it returns the mels ``[rows, T,
+    n_mel]`` and each row's frame count, on the device. ``batch_inputs(b,
+    rows)`` gives the batch's further inputs at its whole shape, split as the
+    text is (a draw taken once for the whole batch). ``on_lengths(lengths,
+    seconds)`` sees the real rows' frame counts and the seconds from the
+    batch's start to their host read. The vocoder, in ``dtype``, takes every
+    replica's mels at the whole batch's longest count rounded up to
+    ``frame_bucket`` frames (at most the ``T`` the acoustic stage padded
+    to), and each utterance is trimmed to its count of frames and to that
+    many times the vocoder's ``hop_size`` samples.
+
+    With tracing on (``utils/profiling.py``) each batch is a ``serve.batch``
+    span, closed before its utterances are yielded, holding each replica's
+    ``serve.acoustic`` (device-timed), ``serve.wait`` (the host read of the
+    lengths) and the vocoder stage's ``serve.vocoder`` and ``serve.to_host``.
+    """
+    devices = resolve_devices(device)
+    put, replicate, batch_size = serving_sharding(batch_size, devices)
+    models = replicate(model)
+    generators = None if generator is None else replicate(generator)
+    hop = 0 if generator is None else generator.config.hop_size
+
+    with Replicas(devices) as replicas:
+        for b, (idxs, text, lens) in enumerate(text_batches(encoded, batch_size, text_bucket)):
+            t0 = time.perf_counter()
+
+            def run(i, text, lens, *inputs):
+                with span("serve.acoustic", text.device):
+                    mel, n = acoustic(models[i], b, text, lens, *inputs)
+                    # the host boundary is f32 whatever the compute type
+                    mel = mel.float()
+                with span("serve.wait"):
+                    return mel, n.cpu().numpy()
+
+            with span("serve.batch"):
+                inputs = [] if batch_inputs is None else batch_inputs(b, len(text))
+                mels, n = zip(*replicas.map(run, put(text), put(lens), *map(put, inputs),
+                                            dtype=acoustic_dtype))
+                n = np.concatenate(n)
+                if on_lengths is not None:
+                    on_lengths(n[:len(idxs)], time.perf_counter() - t0)
+                frames = min(round_up(int(n[:len(idxs)].max()), frame_bucket), mels[0].shape[1])
+                mel, audio = vocode_replicas(replicas, generators, mels, frames, dtype)
+            for r, j in enumerate(idxs):
+                k = int(n[r])
+                yield j, mel[r, :k], (None if audio is None else audio[r, :k * hop])

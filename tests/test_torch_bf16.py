@@ -289,8 +289,8 @@ def test_text2wav_bf16_matches_jax_composition():
     dur_tgt = np.floor(dur_b + 0.5)[None]
     fp.infer = functools.partial(fp.infer, dur_tgt=torch.as_tensor(dur_tgt))
     (_, mel, audio), = fastpitch_infer.synthesize(
-        fp, gen, [encoded], device=CPU, batch_size=1, max_mel_len=128, hop_length=16,
-        text_bucket=1, frame_bucket=32, dtype=BF16)
+        fp, gen, [encoded], device=CPU, batch_size=1, max_mel_len=128, text_bucket=1,
+        frame_bucket=32, dtype=BF16)
     (nb, mel_b, audio_b, _), (nf, mel_f, audio_f, _) = (
         run_jax(dt, dur_tgt=jnp.asarray(dur_tgt)) for dt in (jnp.bfloat16, None))
     assert mel.shape[0] == nb == nf and audio.shape == audio_b.shape == (nb * 16,)

@@ -70,7 +70,7 @@ def test_gradtts_infer_end_to_end_matches_jax(tmp_path):
     gradtts_infer.main(["--checkpoint", str(gt_dir), "--hifigan-checkpoint", str(hg_dir),
                         "-i", str(text), "-o", str(out), "--timesteps", "2",
                         "--temperature", "1e30", "--max-mel-len", str(MAX_MEL), "-bs", "2",
-                        "--hop-length", "16", "--device", "cpu"])
+                        "--device", "cpu"])
 
     encoded = gradtts_infer.encode(PHRASES, cfg.n_symbols)
     assert all(e[0] == cfg.n_symbols - 1 and len(e) % 2 == 1 for e in encoded)  # interspersed

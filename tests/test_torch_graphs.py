@@ -323,8 +323,8 @@ def test_synthesize_on_the_cpu_meets_no_graph():
     rng = np.random.default_rng(0)
     encoded = [rng.integers(1, 40, n).astype(np.int32) for n in (5, 9, 12)]
     out = list(fastpitch_infer.synthesize(fp, gen, encoded, device=CPU, batch_size=2,
-                                          max_mel_len=64, hop_length=16, text_bucket=8,
-                                          frame_bucket=4, dtype=torch.bfloat16))
+                                          max_mel_len=64, text_bucket=8, frame_bucket=4,
+                                          dtype=torch.bfloat16))
     assert len(out) == 3 and _n_graphs(fp) == 0 and _n_graphs(gen) == 0
 
 

@@ -189,8 +189,8 @@ def _family(name, dtype=None):
         with torch.no_grad():
             model.duration_predictor.fc.bias.fill_(float(np.log(4.0)))
         run = lambda device: fastpitch_infer.synthesize(  # noqa: E731
-            model, voc, enc, device=device, batch_size=4, max_mel_len=96, hop_length=16,
-            text_bucket=8, frame_bucket=1, dtype=dtype)
+            model, voc, enc, device=device, batch_size=4, max_mel_len=96, text_bucket=8,
+            frame_bucket=1, dtype=dtype)
     elif name == "fastspeech2":
         model = fs2.FastSpeech2(fs2.FastSpeech2Config(
             n_symbols=40, encoder_layer=1, decoder_layer=1, encoder_hidden=32, decoder_hidden=32,
@@ -217,7 +217,7 @@ def _family(name, dtype=None):
             n_enc_layers=1, dec_dim=8)).eval()
         run = lambda device: (out[:3] for out in gradtts_infer.synthesize(  # noqa: E731
             model, voc, enc, device=device, n_timesteps=3, stoc=False, batch_size=4,
-            max_mel_len=48, hop_length=16, frame_bucket=16, dtype=dtype))
+            max_mel_len=48, frame_bucket=16, dtype=dtype))
     elif name == "flowtron":
         model = fl.Flowtron(fl.FlowtronConfig(
             n_text=40, n_text_dim=32, n_attn_channels=16, n_hidden=24, n_speaker_dim=8,

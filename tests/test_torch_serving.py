@@ -106,30 +106,37 @@ def models():
 def _serve(family, models, device, batch_size, amp=False):
     """``synthesize`` of ``family`` with the tiny vocoder: [(index, mel,
     audio)] in yield order."""
+    return list(_synthesize(family, models, device, batch_size, amp))
+
+
+def _synthesize(family, models, device, batch_size, amp=False):
+    """``synthesize`` of ``family`` with the tiny vocoder, as it yields
+    ``(index, mel, audio)``; ``amp`` is its ``dtype=bfloat16``."""
     enc = _encoded(40)
     voc = models["vocoder"]
     dtype = torch.bfloat16 if amp else None
     if family == "fastpitch":
         it = fastpitch_infer.synthesize(models[family], voc, enc, device=device,
-                                        batch_size=batch_size, max_mel_len=96, hop_length=16,
-                                        text_bucket=8, frame_bucket=1, dtype=dtype)
+                                        batch_size=batch_size, max_mel_len=96, text_bucket=8,
+                                        frame_bucket=1, dtype=dtype)
     elif family == "fastspeech2":
         it = fastspeech2_infer.synthesize(models[family], voc, enc, device=device,
-                                          max_mel_len=96, batch_size=batch_size)
+                                          max_mel_len=96, batch_size=batch_size, dtype=dtype)
     elif family == "talknet":
         it = talknet_infer.synthesize(models[family], voc, enc, device=device, max_mel_len=64,
-                                      batch_size=batch_size)
+                                      batch_size=batch_size, dtype=dtype)
     elif family == "gradtts":
         it = (out[:3] for out in gradtts_infer.synthesize(
             models[family], voc, enc, device=device, n_timesteps=3, stoc=True,
-            batch_size=batch_size, max_mel_len=48, hop_length=16, frame_bucket=16))
+            batch_size=batch_size, max_mel_len=48, frame_bucket=16, dtype=dtype))
     elif family == "flowtron":
         it = flowtron_infer.synthesize(models[family], voc, enc, device=device,
-                                       batch_size=batch_size, n_frames=24, sigma=0.8)
+                                       batch_size=batch_size, n_frames=24, sigma=0.8,
+                                       dtype=dtype)
     else:
         it = tacotron2_infer.synthesize(models[family], voc, enc, device=device,
-                                        batch_size=batch_size)
-    return list(it)
+                                        batch_size=batch_size, dtype=dtype)
+    return it
 
 
 @pytest.mark.parametrize("batch_size", [1, 5, 8, 9])
@@ -256,7 +263,7 @@ def test_fastpitch_on_8_replicas_equals_jax_sharded_serving():
     encoded = _encoded(n_symbols, seed=1)
     max_mel, hop = 96, 16
     ours = list(fastpitch_infer.synthesize(fp, gen, encoded, device=[CPU] * 8, batch_size=5,
-                                           max_mel_len=max_mel, hop_length=hop))
+                                           max_mel_len=max_mel))
 
     # the JAX CLI's loop (fastpitch/inference.py): sharded over every device
     model = JaxFastPitch(JaxFastPitchConfig(**GOLDEN_FP))

@@ -76,8 +76,8 @@ def test_text2wav_golden_through_port_serving_loop(golden_models):
     _, fp, gen = golden_models
     golden = np.load(GOLDEN_DIR / "text2wav_golden.npz")
     (j, mel, audio), = fastpitch_infer.synthesize(
-        fp, gen, _encoded(), device=CPU, batch_size=1, max_mel_len=128, hop_length=16,
-        text_bucket=1, frame_bucket=32)  # the golden's wiring: unpadded text
+        fp, gen, _encoded(), device=CPU, batch_size=1, max_mel_len=128, text_bucket=1,
+        frame_bucket=32)  # the golden's wiring: unpadded text
     assert j == 0
     dec_lens = golden["dec_lens"]
     assert mel.shape[0] == int(dec_lens[0]) and audio.shape == (int(dec_lens[0]) * 16,)
@@ -168,8 +168,7 @@ def test_fastpitch_cli_writes_trimmed_outputs(tmp_path):
     (tmp_path / "in.txt").write_text("\n".join(lines) + "\n")
     fastpitch_infer.main(["--checkpoint", str(tmp_path / "fp"), "--hifigan-checkpoint",
                           str(tmp_path / "hg"), "-i", str(tmp_path / "in.txt"),
-                          "-o", str(tmp_path / "out"), "--device", "cpu", "-bs", "2",
-                          "--hop-length", "16"])
+                          "-o", str(tmp_path / "out"), "--device", "cpu", "-bs", "2"])
     for j in range(len(lines)):
         mel = np.load(tmp_path / "out" / f"utt_{j:04d}_mel.npy")
         _, pcm = wavfile.read(tmp_path / "out" / f"utt_{j:04d}.wav")
@@ -185,5 +184,5 @@ def test_serving_loop_handles_a_batch_with_no_frames(golden_models):
     with torch.no_grad():
         silent.duration_predictor.fc.bias.fill_(-20.0)
     (j, mel, audio), = fastpitch_infer.synthesize(silent, gen, _encoded(), device=CPU,
-                                                  batch_size=2, hop_length=16)
+                                                  batch_size=2)
     assert j == 0 and mel.shape == (0, 80) and audio.shape == (0,)

@@ -5,8 +5,9 @@
 - On, spans nest (parents, self times), counts land on the innermost span,
   and the host stamps lie on the clock of the profiler's own records.
 - A trace's idle gap is named by the program span over it.
-- The sites: a traced ``synthesize`` gives one ``serve.batch`` a batch with
-  its stages and counts ``precision.casts`` as the layers' calls give them;
+- The sites: every family's traced ``synthesize`` (``utils/serving.py::serve``)
+  gives one ``serve.batch`` a batch with its stages and counts
+  ``precision.casts`` as the layers' calls give them;
   a traced GAN step gives its five phases under ``gan.step`` and counts
   ``norms.weight_norm`` as the nets' normalised weights and passes give it.
 
@@ -25,11 +26,11 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from neuraltexttospeech_torch.cli import fastpitch_infer  # noqa: E402
 from neuraltexttospeech_torch.models.hifigan import Generator, HiFiGANConfig  # noqa: E402
 from neuraltexttospeech_torch.nn import layers, precision  # noqa: E402
 from neuraltexttospeech_torch.nn.norms import SpectralNorm, WeightNorm  # noqa: E402
 from neuraltexttospeech_torch.utils import profiling  # noqa: E402
+from test_torch_serving import _synthesize, models  # noqa: E402,F401  (a fixture)
 
 CPU = torch.device("cpu")
 TINY_HG = dict(resblock="2", upsample_rates=(4, 4), upsample_kernel_sizes=(8, 8),
@@ -225,31 +226,16 @@ def test_an_idle_gap_is_named_by_the_span_over_it():
     assert "gan.optim / aten::_foreach_sqrt" in table and "(no span) / host" in table
 
 
-def _tiny_fastpitch():
-    from neuraltexttospeech_torch.models.fastpitch import FastPitch, FastPitchConfig
-
-    torch.manual_seed(0)
-    fp = FastPitch(FastPitchConfig(
-        n_symbols=40, symbols_embedding_dim=32, in_fft_n_layers=1, in_fft_d_head=16,
-        in_fft_n_heads=2, in_fft_conv1d_filter_size=64, out_fft_n_layers=1, out_fft_d_head=16,
-        out_fft_n_heads=2, out_fft_conv1d_filter_size=64, dur_predictor_filter_size=32,
-        pitch_predictor_filter_size=32, energy_predictor_filter_size=32)).eval()
-    with torch.no_grad():
-        fp.duration_predictor.fc.bias.fill_(float(np.log(4.0)))
-    return fp, Generator(HiFiGANConfig(**TINY_HG)).eval()
+FAMILIES = ["fastpitch", "fastspeech2", "talknet", "gradtts", "flowtron", "tacotron2"]
 
 
 @pytest.mark.parametrize("n_replicas", [1, 2])
-def test_traced_synthesize_gives_one_batch_span_a_batch(n_replicas):
-    fp, gen = _tiny_fastpitch()
-    rng = np.random.default_rng(0)
-    encoded = [rng.integers(1, 40, n).astype(np.int32) for n in LENGTHS]
-
+@pytest.mark.parametrize("family", FAMILIES)
+def test_traced_synthesize_gives_one_batch_span_a_batch(family, n_replicas, models):
+    """Every family's ``synthesize`` (``utils/serving.py::serve``), bf16 at
+    the tiny sizes of ``tests/test_torch_serving.py``."""
     def serve():
-        it = fastpitch_infer.synthesize(fp, gen, encoded, device=[CPU] * n_replicas,
-                                        batch_size=4, max_mel_len=96, hop_length=16,
-                                        text_bucket=8, frame_bucket=1, dtype=torch.bfloat16)
-        for _ in it:
+        for _ in _synthesize(family, models, [CPU] * n_replicas, 4, amp=True):
             assert not profiling._stack()  # every span of the batch closed before its yields
 
     with _profile():
@@ -269,7 +255,9 @@ def test_traced_synthesize_gives_one_batch_span_a_batch(n_replicas):
     casts = sum(r.counts.get("precision.casts", 0) for r in recs)
     assert casts > 0
     assert set(r.name for r in recs if r.counts) <= {"serve.acoustic", "serve.vocoder"}
-    assert casts == casts_by_hand([fp, gen], serve)
+    model = models[family]
+    assert casts == casts_by_hand([*(model if family == "talknet" else [model]),
+                                   models["vocoder"]], serve)
 
 
 def test_traced_gan_step_gives_its_five_phases():
